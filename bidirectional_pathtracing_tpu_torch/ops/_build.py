@@ -41,29 +41,49 @@ def _nvcc() -> str:
                        f"({home}); the CUDA kernels cannot be built")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Return the loaded library for csrc/<name>.cu, building it if needed."""
-    if name in _LOADED:
-        return _LOADED[name]
+def _so_path(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    so = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+    return src, os.path.join(BUILD_DIR,
+                             f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Return the loaded library for csrc/<name>.cu, building it if needed."""
+    return load_all([name])[name]
+
+
+def load_all(names) -> dict[str, ctypes.CDLL]:
+    """Load csrc/<name>.cu for every name, starting one nvcc per source
+    that needs a build, all at once, and waiting for all of them."""
     t0 = time.perf_counter()
-    log = ""
-    cached = os.path.exists(so)
-    if not cached:
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src} "
-                               f"(exit {proc.returncode}):\n{log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
-    BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
-                       "cached": cached, "log": log, "so": so}
-    _LOADED[name] = lib
-    return lib
+    jobs = {}
+    for name in names:
+        if name in _LOADED or name in jobs:
+            continue
+        src, so = _so_path(name)
+        proc = tmp = None
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (src, so, tmp, proc)
+    failed = []
+    for name, (src, so, tmp, proc) in jobs.items():
+        log = ""
+        if proc is not None:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {src} "
+                              f"(exit {proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, so)
+        _LOADED[name] = ctypes.CDLL(so)
+        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
+                           "cached": proc is None, "log": log, "so": so}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _LOADED[name] for name in names}

@@ -17,9 +17,15 @@ slices too, so a 6.2M-segment shadow batch fits on the card.  Every dot
 product is written out term by term, in the order the CUDA kernel
 (csrc/brute_hit.cu) evaluates it.
 
-The scene-level dispatch (scene_intersect / scene_occluded) sends CUDA
-tensors to the hand-written brute-force kernel (ops/intersect_brute.py)
-and CPU tensors to the plain versions.  Hits are not differentiable.
+The scene-level dispatch (scene_intersect / scene_occluded) routes by
+triangle count (kernel_route): large scenes with clusters attached take
+the clustered kernel (ops/intersect_clustered.py), the rest the
+brute-force kernel (ops/intersect_brute.py) on CUDA tensors and the plain
+versions on CPU tensors.  SORTED is the JAX package's sorted clustered
+dispatch (a ray sort before each clustered launch); it gives the same
+results and is not the default, because on an H100 its plain-torch shadow
+key costs far more than the sort saves the kernel.  Hits are not
+differentiable.
 """
 
 from __future__ import annotations
@@ -245,47 +251,212 @@ def occluded_segment(geom: Geometry, a, b, rel_eps: float = 2e-4):
 
 # --- scene-level dispatch ---------------------------------------------------
 
-# Triangle-count routing of the JAX package (ops/intersect.py:394-395): at
-# most _BRUTE_PREF triangles take the brute-force kernel; larger scenes with
-# clusters attached take the clustered kernel, which is not ported yet.
+# Triangle-count routing of the JAX package (ops/intersect.py:394-395,
+# :596-601): scenes above _BRUTE_PREF triangles with clusters attached take
+# the clustered kernel K2 (ops/intersect_clustered.py); the rest take the
+# brute-force kernel K1, whose table is capped at _BRUTE_MAX_TRIS.
 _BRUTE_PREF = 8192
 _BRUTE_MAX_TRIS = 131072
+# Through SORTED, clustered launches of at least _SORT_MIN_RAYS rays are
+# sorted first (JAX package :420-429): walks by _morton_key, the shadow
+# batch by _ray_sort_perm_key.  Sorting is a pure performance transform: a
+# ray's result never depends on its neighbours.
+_SORT_MIN_RAYS = 4096
+_FAT_VOL_FRAC = 0.05     # clusters above this scene-volume fraction are
+                         # "fat": every ray crosses them, no grouping signal
+_KEY_CLUSTERS = 32       # clusters per slab pass of _ray_sort_perm_key
+_KEY_RAYS = 1 << 19      # rays per slab pass: [32, 2^19] f32 temporaries
 
 
-def check_brute_route(scene) -> None:
-    """Raise NotImplementedError where the JAX package would leave the
-    brute-force kernel: above _BRUTE_PREF triangles with clusters attached
-    (the clustered kernel, ROADMAP B2), or above _BRUTE_MAX_TRIS."""
+def kernel_route(scene, cuda: bool = True) -> str:
+    """The intersection route of a launch: "clustered" above _BRUTE_PREF
+    triangles with clusters attached (K2 on CUDA, its plain version on the
+    CPU), else "brute" on CUDA (K1) and "plain" on the CPU.  Raises
+    NotImplementedError on CUDA above _BRUTE_MAX_TRIS triangles with no
+    clusters (the JAX package walks its BVH there, not ported yet)."""
     n_t = scene.geometry.num_tris
     if scene.clusters is not None and n_t > _BRUTE_PREF:
-        raise NotImplementedError(
-            f"{n_t} triangles with clusters take the clustered kernel, "
-            "which is not ported yet (ROADMAP B2)")
+        return "clustered"
+    if not cuda:
+        return "plain"
     if n_t > _BRUTE_MAX_TRIS:
         raise NotImplementedError(
             f"{n_t} triangles exceed the brute-force kernel's "
-            f"{_BRUTE_MAX_TRIS}-triangle cap and the clustered kernel is "
-            "not ported yet (ROADMAP B2)")
+            f"{_BRUTE_MAX_TRIS}-triangle cap; attach clusters "
+            "(scene/build.py attach_accelerator) for the clustered kernel")
+    return "brute"
+
+
+def _octant(d):
+    return ((d[:, 0] > 0).to(torch.int32)
+            | ((d[:, 1] > 0).to(torch.int32) << 1)
+            | ((d[:, 2] > 0).to(torch.int32) << 2))
+
+
+def _scene_bounds(cb):
+    """Scene AABB (lo [3], hi [3]) over the finite cluster bounds."""
+    lo = torch.where(torch.isfinite(cb[0:3]), cb[0:3], INF_D).amin(dim=1)
+    hi = torch.where(torch.isfinite(cb[3:6]), cb[3:6], -INF_D).amax(dim=1)
+    return lo, hi
+
+
+def _morton_key(clusters, o, d):
+    """[R] int32 key (direction octant, 21-bit origin Morton), the cheap
+    geometric key of the walk launches (JAX package :492-509)."""
+    lo, hi = _scene_bounds(clusters.cluster_b)
+    ext = torch.clamp_min(hi - lo, 1e-9)
+    q = torch.clamp((o - lo) / ext * 127.0, 0.0, 127.0).to(torch.int32)
+    m = torch.zeros(o.shape[:1], dtype=torch.int32, device=o.device)
+    for b in range(7):
+        for a in range(3):
+            m = m | (((q[:, a] >> b) & 1) << (3 * b + a))
+    return (_octant(d) << 21) | m
+
+
+def _ray_sort_perm_key(clusters, o, d, min_t, max_t):
+    """[R] int32 sort key of the shadow batch (JAX package :439-489): id of
+    the first small cluster the segment [min_t, max_t] crosses, times 8,
+    plus the direction octant; 2^30 for rays crossing no small cluster
+    (dead windows included).  Slab passes over 32 clusters at a time, and
+    over _KEY_RAYS rays at a time so the [32, R] temporaries stay small.
+
+    Padding clusters (index >= n_clusters) are never small here.  In the
+    JAX package their inverted +-inf bounds have zero extent, count as
+    small, and pass every slab test at tmin = -1e30, so every ray's key
+    there becomes the first padding cluster's id (ROADMAP C); guarding by
+    index, as the kernel does, gives the key the grouping it was meant to
+    have.  Results do not depend on the key."""
+    cb = clusters.cluster_b                           # [8, Cpad]
+    cpad = cb.shape[1]
+    r = o.shape[0]
+    inv_d = torch.where(d == 0, INF_D, 1.0 / torch.where(d == 0, 1.0, d))
+    ext = torch.clamp_min(cb[3:6] - cb[0:3], 0.0)     # padding slots -> 0
+    s_lo, s_hi = _scene_bounds(cb)
+    s_ext = s_hi - s_lo
+    scene_vol = torch.clamp_min(s_ext[0] * s_ext[1] * s_ext[2], 1e-30)
+    small = ((ext[0] * ext[1] * ext[2] < _FAT_VOL_FRAC * scene_vol)
+             & (torch.arange(cpad, device=cb.device) < clusters.n_clusters))
+    # a pass over clusters none of which is small can change no key
+    live = small.view(-1, _KEY_CLUSTERS).any(dim=1).tolist()
+    chunks = [i * _KEY_CLUSTERS for i, x in enumerate(live) if x]
+    keys = []
+    for a0 in range(0, r, _KEY_RAYS):
+        a1 = min(a0 + _KEY_RAYS, r)
+        oo, ii = o[a0:a1], inv_d[a0:a1]
+        lo_t, hi_t = min_t[a0:a1], max_t[a0:a1]
+        best_t = torch.full((a1 - a0,), INF_D, device=o.device)
+        best_c = torch.full((a1 - a0,), 2 ** 30, dtype=torch.int32,
+                            device=o.device)
+        for c in chunks:
+            k = _KEY_CLUSTERS
+            tmin = torch.full((k, a1 - a0), -INF_D, device=o.device)
+            tmax = torch.full((k, a1 - a0), INF_D, device=o.device)
+            for ax in range(3):
+                u = (cb[ax, c:c + k, None] - oo[None, :, ax]) \
+                    * ii[None, :, ax]
+                v = (cb[3 + ax, c:c + k, None] - oo[None, :, ax]) \
+                    * ii[None, :, ax]
+                tmin = torch.maximum(tmin, torch.minimum(u, v))
+                tmax = torch.minimum(tmax, torch.maximum(u, v))
+            crossed = ((tmax >= tmin) & (tmax >= lo_t[None, :])
+                       & (tmin <= hi_t[None, :])
+                       & small[c:c + k, None])
+            tm = torch.where(crossed, tmin, INF_D)
+            cmin = tm.amin(dim=0)
+            iota = torch.arange(c, c + k, dtype=torch.int32,
+                                device=o.device)[:, None]
+            cidx = torch.where(tm <= cmin[None, :], iota,
+                               2 ** 30).amin(dim=0).to(torch.int32)
+            upd = cmin < best_t
+            best_t = torch.where(upd, cmin, best_t)
+            best_c = torch.where(upd, cidx, best_c)
+        keys.append(best_c)
+    first_c = torch.cat(keys) if keys else torch.zeros(
+        (0,), dtype=torch.int32, device=o.device)
+    return torch.where(first_c < 2 ** 30, first_c * 8 + _octant(d),
+                       2 ** 30).to(torch.int32)
+
+
+def _sorted(key, *arrays):
+    """(perm, arrays gathered in key order): a stable sort of the key."""
+    perm = torch.sort(key, stable=True).indices
+    return perm, [x[perm] for x in arrays]
+
+
+def _unsort(perm, x):
+    """Inverse of the gather x_sorted = x[perm]."""
+    out = torch.empty_like(x)
+    out[perm] = x
+    return out
+
+
+def _sorted_clustered_intersect(scene, o, d, min_t, max_t) -> Hit:
+    """Closest hit through the clustered kernel, rays sorted by
+    _morton_key when there are at least _SORT_MIN_RAYS (JAX package
+    :531-553); scene_intersect below that or off the clustered route."""
+    from bidirectional_pathtracing_tpu_torch.ops import intersect_clustered
+    r = o.shape[0]
+    if r < _SORT_MIN_RAYS or kernel_route(scene, o.is_cuda) != "clustered":
+        return scene_intersect(scene, o, d, min_t, max_t)
+    min_b = _window(min_t, r, o)
+    max_b = _window(max_t, r, o)
+    geom, cl = scene.geometry, scene.clusters
+    perm, (o_s, d_s, lo_s, hi_s) = _sorted(_morton_key(cl, o, d),
+                                           o, d, min_b, max_b)
+    t_s, slot_s = intersect_clustered.clustered_hit(cl, o_s, d_s, lo_s, hi_s)
+    return intersect_clustered.resolve_clustered_hit(
+        geom, cl, o, d, min_b, max_b, _unsort(perm, t_s),
+        _unsort(perm, slot_s))
+
+
+def _sorted_clustered_occluded(scene, o, d, min_t, max_t):
+    """Any hit through the clustered kernel's early-exit variant, segments
+    sorted by _ray_sort_perm_key when there are at least _SORT_MIN_RAYS
+    (JAX package :556-585 and :615-627); scene_occluded below that or off
+    the clustered route.  Dead windows crossing no small cluster sort to
+    the back, into warps that skip every block."""
+    from bidirectional_pathtracing_tpu_torch.ops import intersect_clustered
+    r = o.shape[0]
+    if r < _SORT_MIN_RAYS or kernel_route(scene, o.is_cuda) != "clustered":
+        return scene_occluded(scene, o, d, min_t, max_t)
+    min_b = _window(min_t, r, o)
+    max_b = _window(max_t, r, o)
+    geom, cl = scene.geometry, scene.clusters
+    key = _ray_sort_perm_key(cl, o, d, min_b, max_b)
+    perm, (o_s, d_s, lo_s, hi_s) = _sorted(key, o, d, min_b, max_b)
+    _, slot_s = intersect_clustered.clustered_hit(cl, o_s, d_s, lo_s, hi_s,
+                                                  any_hit=True)
+    return intersect_clustered.occluded_spheres(
+        geom, o, d, min_b, max_b, _unsort(perm, slot_s) >= 0)
 
 
 def scene_intersect(scene, o, d, min_t, max_t) -> Hit:
-    """Closest-hit dispatch: the brute-force CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
-    if o.is_cuda:
+    """Closest-hit dispatch by kernel_route: the clustered kernel or the
+    brute-force kernel for CUDA tensors; the clustered kernel's plain
+    version or the plain `intersect` for CPU tensors."""
+    route = kernel_route(scene, o.is_cuda)
+    if route == "clustered":
+        from bidirectional_pathtracing_tpu_torch.ops import intersect_clustered
+        return intersect_clustered.intersect_clustered(
+            scene.geometry, scene.clusters, o, d, min_t, max_t)
+    if route == "brute":
         from bidirectional_pathtracing_tpu_torch.ops import intersect_brute
-        check_brute_route(scene)
         return intersect_brute.intersect_brute(scene.geometry, o, d,
                                                min_t, max_t)
     return intersect(scene.geometry, o, d, min_t, max_t)
 
 
 def scene_occluded(scene, o, d, min_t, max_t):
-    """Any-hit dispatch.  On CUDA the brute-force kernel's closest hit is
-    read as prim >= 0 with no resolve, as in the JAX package
+    """Any-hit dispatch by kernel_route.  The brute-force kernel's closest
+    hit is read as prim >= 0 with no resolve, as in the JAX package
     (ops/intersect.py:634-644)."""
-    if o.is_cuda:
+    route = kernel_route(scene, o.is_cuda)
+    if route == "clustered":
+        from bidirectional_pathtracing_tpu_torch.ops import intersect_clustered
+        return intersect_clustered.occluded_clustered(
+            scene.geometry, scene.clusters, o, d, min_t, max_t)
+    if route == "brute":
         from bidirectional_pathtracing_tpu_torch.ops import intersect_brute
-        check_brute_route(scene)
         _, prim = intersect_brute.brute_hit(scene.geometry, o, d,
                                             min_t, max_t)
         return prim >= 0
@@ -308,9 +479,11 @@ def _plain_occluded(scene, o, d, min_t, max_t):
 
 
 # DISPATCH is what a render uses; PLAIN forces the plain torch versions on
-# any device (a hook for holding the kernel path against them).
+# any device (a hook for holding the kernel path against them); SORTED is
+# DISPATCH with the JAX package's ray sort before each clustered launch.
 DISPATCH = Intersector(scene_intersect, scene_occluded)
 PLAIN = Intersector(_plain_closest, _plain_occluded)
+SORTED = Intersector(_sorted_clustered_intersect, _sorted_clustered_occluded)
 
 
 def scene_occluded_segment(scene, a, b, rel_eps: float = 2e-4, active=None,

@@ -2,7 +2,9 @@
 
 make_cornell_box is a copy of bidirectional_pathtracing_tpu/scene/
 procedural.py make_cornell_box (:26-101), building the same arrays leaf by
-leaf and bit for bit, as torch tensors on `device`.
+leaf and bit for bit, as torch tensors on `device`.  make_mesh_cornell_box
+is the same box with icosphere meshes in place of the spheres, the port's
+large-scene configuration; mesh_cornell_box_arrays gives its raw arrays.
 """
 
 from __future__ import annotations
@@ -23,13 +25,10 @@ def _quad(p0, p1, p2, p3, n):
     return tris, norms
 
 
-def make_cornell_box(width: int = 120, height: int = 90,
-                     sphere_materials=("diffuse", "diffuse"),
-                     device="cpu") -> Scene:
-    """A 2x1.5x2 Cornell box, open front (+z), two spheres, ceiling light.
-
-    width/height are accepted for signature parity; the camera's field of
-    view is fixed, as in the JAX package."""
+def _box_records():
+    """The Cornell box's walls, light quad, materials, light and camera
+    values, shared by make_cornell_box and the mesh box (JAX package
+    scene/procedural.py:29-99)."""
     tris, norms, mats = [], [], []
 
     def add_quad(p0, p1, p2, p3, n, mid):
@@ -69,17 +68,7 @@ def make_cornell_box(width: int = 120, height: int = 90,
     add_quad([-0.4, 1.49, -0.3], [0.4, 1.49, -0.3], [0.4, 1.49, 0.3],
              [-0.4, 1.49, 0.3], [0, -1, 0], 3)
 
-    mat_name_to_id = {"diffuse": 4, "mirror": 5, "glass": 6,
-                      "microfacet": 7}
-    sph_c = [[-0.4, 0.3, -0.3], [0.4, 0.3, 0.3]]
-    sph_r = [0.3, 0.3]
-    sph_mat = [mat_name_to_id[m] for m in sphere_materials]
-
-    geometry = make_geometry(np.array(tris), np.array(norms),
-                             np.array(mats, np.int32),
-                             np.array(sph_c), np.array(sph_r),
-                             np.array(sph_mat, np.int32), device=device)
-    lights = make_lights([{
+    lights = [{
         "kind": LIGHT_AREA,
         "radiance": np.array([10.0, 10.0, 10.0]),
         "position": np.array([0.0, 1.49, 0.0]),
@@ -87,22 +76,118 @@ def make_cornell_box(width: int = 120, height: int = 90,
         "dim_x": np.array([0.8, 0.0, 0.0]),
         "dim_y": np.array([0.0, 0.0, 0.6]),
         "area": 0.48,
-    }], device=device)
-
+    }]
     # camera on the +z axis looking -z, like the reference placement
-    def f32(v):
-        return torch.tensor(v, dtype=torch.float32, device=device)
+    camera = {k: np.asarray(v, np.float32) for k, v in (
+        ("c2w", np.eye(3)), ("pos", [0.0, 0.75, 4.0]), ("hfov", 35.0),
+        ("vfov", 27.0), ("nclip", 0.01), ("fclip", 100.0),
+        ("lens_radius", 0.0), ("focal_distance", 4.0))}
+    return tris, norms, mats, materials, lights, camera
 
-    camera = Camera(
-        c2w=f32(np.eye(3)),
-        pos=f32([0.0, 0.75, 4.0]),
-        hfov=f32(35.0),
-        vfov=f32(27.0),
-        nclip=f32(0.01),
-        fclip=f32(100.0),
-        lens_radius=f32(0.0),
-        focal_distance=f32(4.0),
-    )
+
+_MAT_NAME_TO_ID = {"diffuse": 4, "mirror": 5, "glass": 6, "microfacet": 7}
+_SPH_C = [[-0.4, 0.3, -0.3], [0.4, 0.3, 0.3]]
+_SPH_R = [0.3, 0.3]
+
+
+def _camera(values: dict, device) -> Camera:
+    return Camera(**{k: torch.from_numpy(v.copy()).to(device)
+                     for k, v in values.items()})
+
+
+def make_cornell_box(width: int = 120, height: int = 90,
+                     sphere_materials=("diffuse", "diffuse"),
+                     device="cpu") -> Scene:
+    """A 2x1.5x2 Cornell box, open front (+z), two spheres, ceiling light.
+
+    width/height are accepted for signature parity; the camera's field of
+    view is fixed, as in the JAX package."""
+    tris, norms, mats, materials, lights, camera = _box_records()
+    sph_mat = [_MAT_NAME_TO_ID[m] for m in sphere_materials]
+    geometry = make_geometry(np.array(tris), np.array(norms),
+                             np.array(mats, np.int32),
+                             np.array(_SPH_C), np.array(_SPH_R),
+                             np.array(sph_mat, np.int32), device=device)
     return Scene(geometry=geometry,
                  materials=make_materials(materials, device=device),
-                 lights=lights, camera=camera)
+                 lights=make_lights(lights, device=device),
+                 camera=_camera(camera, device))
+
+
+def icosphere(level: int):
+    """Unit icosphere: (vertices [V,3] f64 on the unit sphere, faces [F,3]
+    int64 wound counter-clockwise seen from outside), F = 20 * 4**level.
+    Each level splits every face into four at the normalised edge
+    midpoints."""
+    g = (1.0 + 5.0 ** 0.5) / 2.0
+    verts = [(-1, g, 0), (1, g, 0), (-1, -g, 0), (1, -g, 0),
+             (0, -1, g), (0, 1, g), (0, -1, -g), (0, 1, -g),
+             (g, 0, -1), (g, 0, 1), (-g, 0, -1), (-g, 0, 1)]
+    verts = [np.array(v, np.float64) / np.linalg.norm(v) for v in verts]
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+             (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+             (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+             (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    for _ in range(level):
+        mids = {}
+
+        def mid(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mids:
+                m = verts[a] + verts[b]
+                verts.append(m / np.linalg.norm(m))
+                mids[key] = len(verts) - 1
+            return mids[key]
+
+        nxt = []
+        for a, b, c in faces:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            nxt += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = nxt
+    return np.array(verts), np.array(faces, np.int64)
+
+
+def mesh_cornell_box_arrays(sphere_level: int,
+                            sphere_materials=("mirror", "glass")) -> dict:
+    """The raw arrays of the mesh-sphere Cornell box (see
+    make_mesh_cornell_box): tri_p / tri_n [T,3,3] f32, tri_mat [T] int32,
+    the material and light records, and the camera values as f32 arrays,
+    so that both packages' builders can be fed the very same numbers."""
+    tris, norms, mats, materials, lights, camera = _box_records()
+    unit, faces = icosphere(sphere_level)
+    p = [np.array(tris)]
+    n = [np.array(norms)]
+    m = [np.array(mats, np.int32)]
+    for c, r, name in zip(_SPH_C, _SPH_R, sphere_materials):
+        dirs = unit[faces]                              # [F,3,3] unit
+        p.append(np.asarray(c, np.float64) + r * dirs)
+        n.append(dirs)
+        m.append(np.full(faces.shape[0], _MAT_NAME_TO_ID[name], np.int32))
+    return {"tri_p": np.concatenate(p).astype(np.float32),
+            "tri_n": np.concatenate(n).astype(np.float32),
+            "tri_mat": np.concatenate(m),
+            "materials": materials, "lights": lights, "camera": camera}
+
+
+def make_mesh_cornell_box(sphere_level: int = 6,
+                          sphere_materials=("mirror", "glass"),
+                          device="cpu") -> Scene:
+    """The Cornell box of make_cornell_box with its two analytic spheres
+    replaced by icosphere meshes: the same centres, radii and materials,
+    smooth normals (the unit vertex directions), 20 * 4**sphere_level
+    triangles per sphere and no analytic sphere (make_geometry pads one
+    invalid sphere).  Level 6 gives 12 + 2 * 81,920 = 163,852 triangles,
+    level 4 gives 10,252.
+
+    It stands in for the large .dae scenes of the JAX package's bench
+    (CBbunny, 28.5k triangles; the CBlucy stand-in, 457k) until their
+    files are in the repository: the same Cornell-box walls around a dense
+    closed mesh.  No accelerator is attached (scene/build.py
+    attach_accelerator does that)."""
+    a = mesh_cornell_box_arrays(sphere_level, sphere_materials)
+    return Scene(
+        geometry=make_geometry(a["tri_p"], a["tri_n"], a["tri_mat"],
+                               device=device),
+        materials=make_materials(a["materials"], device=device),
+        lights=make_lights(a["lights"], device=device),
+        camera=_camera(a["camera"], device))

@@ -15,7 +15,10 @@ jax-free so the port runs where jax is not installed.  from_numpy builds a
 Scene from the JAX scene's leaves converted with np.asarray, so both
 packages compute on identical numbers.
 
-Not ported yet: BVHArrays, Envmap and the cluster tables (ROADMAP).
+The cluster tables (scene/clusters.py ClusteredTris) ride along in both:
+a JAX scene with flat clusters converts leaf by leaf.
+
+Not ported yet: BVHArrays and Envmap (ROADMAP).
 """
 
 from __future__ import annotations
@@ -141,9 +144,13 @@ _PARTS = (("geometry", Geometry), ("materials", Materials),
 
 
 def to_numpy(scene: Scene) -> dict[str, np.ndarray]:
-    """Flatten a Scene to {"geometry.tri_p": array, ...} (host copies)."""
+    """Flatten a Scene to {"geometry.tri_p": array, ...} (host copies),
+    with "clusters.<field>" leaves when cluster tables are attached."""
+    parts = list(_PARTS)
+    if scene.clusters is not None:
+        parts.append(("clusters", type(scene.clusters)))
     out = {}
-    for part, cls in _PARTS:
+    for part, cls in parts:
         sub = getattr(scene, part)
         for f in cls._fields:
             out[f"{part}.{f}"] = getattr(sub, f).detach().cpu().numpy()
@@ -155,15 +162,30 @@ def from_numpy(arrays: dict[str, np.ndarray], device) -> Scene:
 
     The keys are those of to_numpy; a JAX Scene converts to the same dict
     with np.asarray leaf by leaf.  Values keep their dtypes (f32 / int32 /
-    bool).  Scenes with a BVH, an envmap or clusters are outside the port's
-    slice, so only the four required parts are read.
+    bool).  "clusters.*" leaves of the flat layout become ClusteredTris; a
+    JAX table's `tris` [C, 16, 128] is cut to its 9 vertex rows (rows
+    9..15 are TPU DMA padding).  The paired layout (a "clusters.sub_marker"
+    leaf) is not ported and raises.  A BVH or an envmap is not read.
     """
+    from bidirectional_pathtracing_tpu_torch.scene.clusters import (
+        ClusteredTris)
     dev = torch.device(device)
+
+    def conv(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
     parts = {}
     for part, cls in _PARTS:
-        parts[part] = cls(**{
-            f: torch.from_numpy(np.array(arrays[f"{part}.{f}"])).to(dev)
-            for f in cls._fields})
+        parts[part] = cls(**{f: conv(arrays[f"{part}.{f}"])
+                             for f in cls._fields})
+    if "clusters.sub_marker" in arrays:
+        raise ValueError("the paired cluster layout is not ported; build "
+                         "the JAX tables with paired=False")
+    if "clusters.tris" in arrays:
+        leaves = {f: arrays[f"clusters.{f}"] for f in ClusteredTris._fields}
+        leaves["tris"] = np.asarray(leaves["tris"])[:, :9]
+        parts["clusters"] = ClusteredTris(**{f: conv(a)
+                                             for f, a in leaves.items()})
     return Scene(**parts)
 
 

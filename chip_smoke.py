@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's BDPT main path on one CUDA card.
+"""Drive the PyTorch port's BDPT main paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,24 +8,41 @@ a zero exit):
 
   0. environment: torch / CUDA versions and the card's name and power
      limit; a CUDA device is required.
-  1. build the brute-force hit kernel (csrc/brute_hit.cu) from the sources
-     in this checkout.
-  2. the kernel against its plain torch version on the card, closest hit and
-     any hit, on the Cornell box (12 triangles, 2 spheres) and an 8,192-
-     triangle soup with the same spheres, over camera, bounce and
-     segment-clipped shadow rays; then both timed at the main path's launch
-     sizes (172,800 walk rays, 6,220,800 shadow segments at 480x360 d5).
-  3. the slice: render() of the Cornell box with mirror and glass spheres
-     at 480x360, depth 5, on the card:
-       a. 4 spp through the kernel against 4 spp through the plain version;
+  1. build both hit kernels (csrc/brute_hit.cu, csrc/clustered_hit.cu) from
+     the sources in this checkout, one nvcc each, started together, and
+     print what ptxas reports for each.
+  2. the brute-force kernel K1 against its plain torch version on the card,
+     closest hit and any hit, on the Cornell box (12 triangles, 2 spheres)
+     and an 8,192-triangle soup with the same spheres, over camera, bounce
+     and segment-clipped shadow rays; then both timed at the main path's
+     launch sizes (172,800 walk rays, 6,220,800 shadow segments at 480x360
+     d5).
+  3. the small-scene path: render() of the Cornell box with mirror and
+     glass spheres at 480x360, depth 5, on the card:
+       a. 4 spp through K1 against 4 spp through the plain version;
        b. 48x36 d5 8 spp against the JAX package's golden
           (tests/golden/torch_port/);
-       c. a timed 32-spp run (chunks of 8) after one warm-up pass, with the
-          kernel's launch count taken over that run alone.
+       c. a timed 32-spp run (chunks of 8) after one warm-up pass, with K1's
+          launch count taken over that run alone.
+  4. the clustered kernel K2: the mesh-sphere Cornell box at level 6
+     (163,852 triangles) with its cluster tables (attach_accelerator), and
+     a 65,536-triangle soup.  K2 against its plain torch version, closest
+     hit and any hit, over 65,536 camera, bounce and shadow rays of each;
+     then K2 timed at 172,800 walk rays and 6,220,800 shadow segments,
+     unsorted and sorted, with the sort key's own time, and the plain
+     version at 172,800 rays; K2's outputs there held against the plain
+     version (walk) and sorted against unsorted (both, bitwise).
+  5. the large-scene path: render() of the mesh box through K2:
+       a. level 4 (10,252 triangles), 120x90 d5 4 spp, through K2 against
+          the same render through the plain version;
+       b. level 6, 48x36 d5 8 spp against the JAX package's golden;
+       c. level 6, 480x360 d5 8 spp in one chunk after a warm-up pass, with
+          K2's launch count taken over that run alone; then the same render
+          through the sorted dispatch (SORTED), timed and held against it.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and before that one JSON line
-lists the kernel with its launches, error and times.
+lists the kernels with their launches, errors and times.
 """
 
 from __future__ import annotations
@@ -39,11 +56,15 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(REPO, "tests", "golden", "torch_port",
-                      "cornell_mg_bdpt_48x36_d5_8spp_seed0.npz")
+GOLDEN_DIR = os.path.join(REPO, "tests", "golden", "torch_port")
+GOLDEN = os.path.join(GOLDEN_DIR, "cornell_mg_bdpt_48x36_d5_8spp_seed0.npz")
+GOLDEN_MESH = os.path.join(GOLDEN_DIR,
+                           "meshbox_L6_bdpt_48x36_d5_8spp_seed0.npz")
 W, H, DEPTH = 480, 360, 5
 WALK_RAYS = W * H                              # one walk bounce
 SHADOW_RAYS = W * H * (DEPTH + 1) * (DEPTH + 1)  # the 36-combo shadow batch
+K2_RAYS = 65536                                # rays per K2 check population
+MESH_LEVEL = 6                                 # 163,852 triangles
 
 
 class PhaseError(RuntimeError):
@@ -74,12 +95,11 @@ def block_err(ref, mine, nb=8, floor=0.05):
     return np.abs(a - b) / (np.abs(a) + floor)
 
 
-# --- phase 2 helpers --------------------------------------------------------
+# --- ray populations --------------------------------------------------------
 
 def soup_scene(device, n_tris=8192, seed=0):
-    """Cornell-box lights/camera/spheres with an 8,192-triangle random soup
-    (small triangles inside the box) as geometry."""
-    import torch
+    """Cornell-box lights/camera/spheres with a random soup of n_tris small
+    triangles inside the box as geometry."""
     from bidirectional_pathtracing_tpu_torch.scene.procedural import (
         make_cornell_box)
     from bidirectional_pathtracing_tpu_torch.scene.types import make_geometry
@@ -98,19 +118,22 @@ def soup_scene(device, n_tris=8192, seed=0):
 
 
 def ray_populations(scene, n, seed):
-    """camera, bounce and shadow populations: (name, o, d, min_t, max_t)."""
+    """camera, bounce and shadow populations: (name, o, d, min_t, max_t).
+    Bounce rays leave the camera rays' hits (through the scene's dispatch)
+    in random directions."""
     import torch
     from bidirectional_pathtracing_tpu_torch.core.math import EPS_F, INF_D
     from bidirectional_pathtracing_tpu_torch.ops import camera_ops
-    from bidirectional_pathtracing_tpu_torch.ops.intersect import intersect
+    from bidirectional_pathtracing_tpu_torch.ops.intersect import (
+        scene_intersect)
     dev = scene.device
     rng = np.random.default_rng(seed)
     xy = torch.from_numpy(rng.uniform(0, 1, (n, 2)).astype(np.float32)).to(dev)
     o_cam, d_cam = camera_ops.generate_ray(scene.camera, xy[:, 0], xy[:, 1])
     o_cam = o_cam.contiguous()
     cam = ("camera", o_cam, d_cam, scene.camera.nclip, scene.camera.fclip)
-    hit = intersect(scene.geometry, o_cam, d_cam, scene.camera.nclip,
-                    scene.camera.fclip)
+    hit = scene_intersect(scene, o_cam, d_cam, scene.camera.nclip,
+                          scene.camera.fclip)
     # bounce rays: from camera hits (or a point in the box) in random dirs
     inside = torch.from_numpy(rng.uniform([-1, 0, -1], [1, 1.5, 1], (n, 3))
                               .astype(np.float32)).to(dev)
@@ -130,9 +153,19 @@ def ray_populations(scene, n, seed):
     return [cam, bounce, shadow]
 
 
+def edge_band(t_open, lo, hi):
+    """Rays whose open-window closest t lies within 1e-4 max_t of a window
+    edge, where any hit and closest hit may round differently."""
+    band = 1e-4 * np.minimum(np.abs(hi), 10.0)
+    return (t_open < 1e30) & ((np.abs(t_open - hi) <= band)
+                              | (np.abs(t_open - lo) <= band))
+
+
+# --- phase 2: K1 against its plain version ----------------------------------
+
 def compare_kernel(scene, pops, label):
-    """Closest hit and any hit of the kernel against the plain version on
-    the same tensors.  Returns (report dict, max |dt| on agreeing rays)."""
+    """Closest hit and any hit of K1 against the plain version on the same
+    tensors.  Returns (report dict, max |dt| on agreeing rays)."""
     import torch
     from bidirectional_pathtracing_tpu_torch.core.math import INF_D
     from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
@@ -157,19 +190,15 @@ def compare_kernel(scene, pops, label):
         if agree.any():
             max_err = max(max_err, float(np.abs(t_k - t_p)[agree].max()))
         # any hit: the kernel's closest hit read as prim >= 0 against the
-        # plain `occluded`; rays whose t lies within 1e-4 max_t of a window
-        # edge are excluded (ADVICE.md:4)
+        # plain `occluded`, outside the window-edge band
         hi_t = torch.as_tensor(hi, device=o.device).expand(r)
         lo_t = torch.as_tensor(lo, device=o.device).expand(r)
         any_k = p_k >= 0
         any_p = occluded(g, o, d, lo, hi).cpu().numpy()
         t_open, _ = ib.brute_hit_plain(g, o, d, lo,
                                        torch.full_like(hi_t, INF_D))
-        t_open = t_open.cpu().numpy()
-        hi_np, lo_np = hi_t.cpu().numpy(), lo_t.cpu().numpy()
-        band = 1e-4 * np.minimum(np.abs(hi_np), 10.0)
-        edge = (t_open < INF_D) & ((np.abs(t_open - hi_np) <= band)
-                                   | (np.abs(t_open - lo_np) <= band))
+        edge = edge_band(t_open.cpu().numpy(), lo_t.cpu().numpy(),
+                         hi_t.cpu().numpy())
         any_bad = int(((any_k != any_p) & ~edge).sum())
         rec = {"rays": r, "hits": int(v_p.sum()),
                "sphere_hits": int((v_p & (p_p >= num_t)).sum()),
@@ -183,6 +212,69 @@ def compare_kernel(scene, pops, label):
               "on valid/prim (limit 0.01%)")
         check(tri_rel <= 1e-6, f"{label}/{name}: triangle t rel err {tri_rel}")
         check(sph_rel <= 1e-4, f"{label}/{name}: sphere t rel err {sph_rel}")
+        check(any_bad <= 1e-4 * r, f"{label}/{name}: {any_bad} any-hit "
+              "disagreements outside the window-edge band")
+    return report, max_err
+
+
+# --- phase 4: K2 against its plain version ----------------------------------
+
+def hold_clustered(label, t_k, s_k, t_p, s_p):
+    """Phase 2's gates for K2's closest hit (t, slot) against the plain
+    version's, all numpy [R]: valid/slot disagree on at most 0.01 % of
+    rays, t rtol 1e-6 where they agree.  Returns a record with the counts
+    and the max |dt| on agreeing hits."""
+    r = s_p.shape[0]
+    v_k, v_p = s_k >= 0, s_p >= 0
+    bad = s_k != s_p
+    agree = v_k & ~bad
+    rel = np.abs(t_k - t_p) / np.maximum(np.abs(t_p), 1e-30)
+    tri_rel = float(rel[agree].max()) if agree.any() else 0.0
+    max_abs = float(np.abs(t_k - t_p)[agree].max()) if agree.any() else 0.0
+    rec = {"rays": r, "hits": int(v_p.sum()), "disagree": int(bad.sum()),
+           "plain_hit_kernel_miss": int((v_p & ~v_k).sum()),
+           "t_max_rel": tri_rel, "t_max_abs": max_abs}
+    check(int(bad.sum()) <= 1e-4 * r, f"{label}: {int(bad.sum())} of {r} "
+          "rays disagree on valid/slot (limit 0.01%)")
+    check(tri_rel <= 1e-6, f"{label}: triangle t rel err {tri_rel}")
+    return rec
+
+
+def compare_clustered(scene, pops, label):
+    """Closest hit and any hit of K2 against clustered_hit_plain on the same
+    tensors.  The plain version culls nothing, so a disagreement is a ray
+    that K2's slab tests culled from the cluster of its true hit (a graze
+    of a zero-thickness box) or a kernel fault; both count against the
+    0.01 % gate.  The any-hit edge band comes from the plain version's
+    open-window t.  Returns (report dict, max |dt| on agreeing hits)."""
+    import torch
+    from bidirectional_pathtracing_tpu_torch.core.math import INF_D
+    from bidirectional_pathtracing_tpu_torch.ops import (
+        intersect_clustered as icl)
+    cl = scene.clusters
+    report, max_err = {}, 0.0
+    for name, o, d, lo, hi in pops:
+        r = o.shape[0]
+        lo_t = torch.as_tensor(lo, device=o.device).expand(r)
+        hi_t = torch.as_tensor(hi, device=o.device).expand(r)
+        t_k, s_k = icl.clustered_hit(cl, o, d, lo_t, hi_t)
+        _, a_k = icl.clustered_hit(cl, o, d, lo_t, hi_t, any_hit=True)
+        t_p, s_p = icl.clustered_hit_plain(cl, o, d, lo_t, hi_t)
+        t_open, _ = icl.clustered_hit_plain(cl, o, d, lo_t,
+                                            torch.full_like(hi_t, INF_D))
+        torch.cuda.synchronize()
+        t_k, s_k, a_k, t_p, s_p, t_open, lo_n, hi_n = (
+            x.cpu().numpy() for x in (t_k, s_k, a_k, t_p, s_p, t_open, lo_t,
+                                      hi_t))
+        rec = hold_clustered(f"{label}/{name}", t_k, s_k, t_p, s_p)
+        max_err = max(max_err, rec["t_max_abs"])
+        edge = edge_band(t_open, lo_n, hi_n)
+        any_bad = int((((a_k >= 0) != (s_p >= 0)) & ~edge).sum())
+        rec.update(any_hit_disagree=any_bad,
+                   any_hit_edge_excluded=int(edge.sum()),
+                   occluded=int((a_k >= 0).sum()))
+        report[name] = rec
+        print(f"[phase4] {label}/{name}: {json.dumps(rec)}")
         check(any_bad <= 1e-4 * r, f"{label}/{name}: {any_bad} any-hit "
               "disagreements outside the window-edge band")
     return report, max_err
@@ -202,6 +294,107 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def time_clustered(scene, gpu):
+    """K2 at the main path's launch sizes on the mesh box: the walk (closest
+    hit, Morton key) and the shadow batch (any hit, first-crossed-cluster
+    key), each on the rays as they come (the default dispatch) and on rays
+    pre-sorted by the key, the key, and the whole sorted dispatch (key,
+    sort, gathers, kernel, inverse scatter; ops/intersect.py SORTED); the
+    plain version at the walk size only (it tests every ray against every
+    triangle), one run with no warm-up.
+
+    The outputs are held too: at both sizes the sorted launch, un-permuted,
+    equals the unsorted one bitwise, and the sorted dispatch equals the
+    default one bitwise; at the walk size the unsorted launch passes phase
+    4's gates against the plain version.  Returns (times, max |dt|)."""
+    import torch
+    from bidirectional_pathtracing_tpu_torch.ops import intersect as isx
+    from bidirectional_pathtracing_tpu_torch.ops import (
+        intersect_clustered as icl)
+    cl, geom = scene.clusters, scene.geometry
+    pops = {p[0]: p for p in ray_populations(scene, SHADOW_RAYS, 3)}
+    _, o_w, d_w, lo_w, hi_w = pops["bounce"]
+    o_w, d_w = o_w[:WALK_RAYS].contiguous(), d_w[:WALK_RAYS].contiguous()
+    _, o_s, d_s, lo_s, hi_s = pops["shadow"]
+    del pops
+    times, max_err = {}, 0.0
+    for label, (o, d, lo, hi), any_hit in (
+            ("walk_172800", (o_w, d_w, lo_w, hi_w), False),
+            ("shadow_6220800", (o_s, d_s, lo_s, hi_s), True)):
+        r = o.shape[0]
+        lo = torch.as_tensor(lo, device=o.device).expand(r).contiguous()
+        hi = torch.as_tensor(hi, device=o.device).expand(r).contiguous()
+
+        def key():
+            if any_hit:
+                return isx._ray_sort_perm_key(cl, o, d, lo, hi)
+            return isx._morton_key(cl, o, d)
+
+        perm, (o_p, d_p, lo_p, hi_p) = isx._sorted(key(), o, d, lo, hi)
+
+        def dispatch():
+            if any_hit:
+                return isx._sorted_clustered_occluded(scene, o, d, lo, hi)
+            return isx._sorted_clustered_intersect(scene, o, d, lo, hi)
+
+        rec = {"rays": r}
+        rec["kernel_unsorted_ms"] = time_ms(
+            lambda: icl.clustered_hit(cl, o, d, lo, hi, any_hit), 5)
+        rec["kernel_sorted_ms"] = time_ms(
+            lambda: icl.clustered_hit(cl, o_p, d_p, lo_p, hi_p, any_hit), 5)
+        rec["key_ms"] = time_ms(key, 3)
+        rec["dispatch_sorted_ms"] = time_ms(dispatch, 3)
+        rec["kernel_unsorted_ms_2"] = time_ms(
+            lambda: icl.clustered_hit(cl, o, d, lo, hi, any_hit), 5)
+
+        # the outputs of what was timed
+        t_u, s_u = icl.clustered_hit(cl, o, d, lo, hi, any_hit)
+        t_s, s_s = icl.clustered_hit(cl, o_p, d_p, lo_p, hi_p, any_hit)
+        check(torch.equal(isx._unsort(perm, t_s), t_u)
+              and torch.equal(isx._unsort(perm, s_s), s_u),
+              f"{label}: K2 on sorted rays, un-permuted, differs from K2 on "
+              "the rays as they come")
+        got = dispatch()
+        if any_hit:
+            ref = icl.occluded_clustered(geom, cl, o, d, lo, hi)
+            same = torch.equal(got, ref)
+            rec["occluded"] = int(ref.sum())
+        else:
+            ref = icl.intersect_clustered(geom, cl, o, d, lo, hi)
+            same = all(torch.equal(x, y) for x, y in zip(got, ref))
+        check(same, f"{label}: the sorted dispatch differs from the default")
+        rec["sorted_equal_bitwise"] = True
+        del t_s, s_s, got, ref
+        if not any_hit:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t_p, s_p = icl.clustered_hit_plain(cl, o, d, lo, hi)
+            end.record()
+            torch.cuda.synchronize()
+            rec["plain_ms"] = start.elapsed_time(end)
+            rec["vs_plain"] = hold_clustered(
+                f"{label} K2 vs plain", t_u.cpu().numpy(), s_u.cpu().numpy(),
+                t_p.cpu().numpy(), s_p.cpu().numpy())
+            max_err = max(max_err, rec["vs_plain"]["t_max_abs"])
+        times[label] = rec
+        print(f"[phase4] time {label}: {json.dumps(rec)} ({gpu})")
+    return times, max_err
+
+
+def render_vs(label, ref_c, got, mean_tol, block_tol):
+    """Frame-mean and 8x8-block gates of a render against a reference."""
+    check(np.isfinite(got).all(), f"{label}: non-finite pixels")
+    check(got.shape == ref_c.shape, f"{label}: shape {got.shape}")
+    rel = abs(float(got.mean()) - float(ref_c.mean())) / float(ref_c.mean())
+    err = block_err(ref_c, got)
+    print(f"[{label}] mean {got.mean():.6f} vs {ref_c.mean():.6f} rel "
+          f"{rel:.3e}; block err mean {err.mean():.3e} max {err.max():.3e}")
+    check(rel <= mean_tol, f"{label}: frame means differ by {rel:.3e}")
+    check(err.mean() <= block_tol, f"{label}: block error {err.mean():.3e}")
+    return rel, float(err.mean())
+
+
 def main() -> int:
     import torch
 
@@ -217,9 +410,14 @@ def main() -> int:
     from bidirectional_pathtracing_tpu_torch.config import RenderConfig
     from bidirectional_pathtracing_tpu_torch.ops import _build
     from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
-    from bidirectional_pathtracing_tpu_torch.ops.intersect import PLAIN
+    from bidirectional_pathtracing_tpu_torch.ops import (
+        intersect_clustered as icl)
+    from bidirectional_pathtracing_tpu_torch.ops.intersect import (
+        PLAIN, SORTED)
+    from bidirectional_pathtracing_tpu_torch.scene.build import (
+        attach_accelerator)
     from bidirectional_pathtracing_tpu_torch.scene.procedural import (
-        make_cornell_box)
+        make_cornell_box, make_mesh_cornell_box)
     from bidirectional_pathtracing_tpu_torch.utils.render import render
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -227,13 +425,15 @@ def main() -> int:
 
     # --- phase 1 -----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.load("brute_hit")
-    info = _build.BUILD_LOG["brute_hit"]
-    print(f"[phase1] built brute_hit in {time.perf_counter() - t0:.2f} s "
-          f"(cached={info['cached']}) -> {os.path.relpath(info['so'], REPO)}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[phase1] ptxas: {line.strip()}")
+    _build.load_all(["brute_hit", "clustered_hit"])
+    print(f"[phase1] built both kernels in {time.perf_counter() - t0:.2f} s")
+    for name in ("brute_hit", "clustered_hit"):
+        info = _build.BUILD_LOG[name]
+        print(f"[phase1] {name}: cached={info['cached']} -> "
+              f"{os.path.relpath(info['so'], REPO)}")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[phase1] {name} ptxas: {line.strip()}")
 
     # --- phase 2 -----------------------------------------------------------
     box = make_cornell_box(W, H, sphere_materials=("mirror", "glass"),
@@ -268,34 +468,17 @@ def main() -> int:
                         integrator="bdpt", seed=0)
     r_k = render(box, cfg4)
     r_p = render(box, cfg4, isect=PLAIN)
-    for r in (r_k, r_p):
-        check(np.isfinite(r.combined).all(), "non-finite pixels")
-        check(r.combined.shape == (H, W, 3), f"shape {r.combined.shape}")
-    m_k, m_p = float(r_k.combined.mean()), float(r_p.combined.mean())
-    rel = abs(m_k - m_p) / m_p
-    err = block_err(r_p.combined, r_k.combined)
-    print(f"[phase3a] 4spp kernel mean {m_k:.6f} plain mean {m_p:.6f} "
-          f"rel {rel:.3e}; block err mean {err.mean():.3e} max "
-          f"{err.max():.3e}; kernel {r_k.stats['wall_time_s']:.2f} s, plain "
+    check(np.isfinite(r_p.combined).all(), "non-finite pixels (plain)")
+    rel, _ = render_vs("phase3a", r_p.combined, r_k.combined, 1e-3, 0.01)
+    print(f"[phase3a] 4spp kernel {r_k.stats['wall_time_s']:.2f} s, plain "
           f"{r_p.stats['wall_time_s']:.2f} s")
-    check(rel <= 1e-3, f"phase 3a: frame means differ by {rel:.3e}")
-    check(err.mean() <= 0.01, f"phase 3a: block error {err.mean():.3e}")
 
     # --- phase 3b: against the JAX golden ----------------------------------
     ref = np.load(GOLDEN)
-    ref_c = ref["eye"] + ref["light"]
     cfg_g = RenderConfig(spp=8, max_ray_depth=DEPTH, width=48, height=36,
                          integrator="bdpt", seed=0)
-    r_g = render(box, cfg_g)
-    check(np.isfinite(r_g.combined).all(), "non-finite pixels (golden run)")
-    rel_g = abs(float(r_g.combined.mean()) - float(ref_c.mean())) \
-        / float(ref_c.mean())
-    err_g = block_err(ref_c, r_g.combined)
-    print(f"[phase3b] vs JAX golden: mean {r_g.combined.mean():.6f} vs "
-          f"{ref_c.mean():.6f} rel {rel_g:.3e}; block err mean "
-          f"{err_g.mean():.3e} max {err_g.max():.3e}")
-    check(rel_g <= 5e-3, f"phase 3b: frame mean differs by {rel_g:.3e}")
-    check(err_g.mean() <= 0.02, f"phase 3b: block error {err_g.mean():.3e}")
+    rel_g, _ = render_vs("phase3b", ref["eye"] + ref["light"],
+                         render(box, cfg_g).combined, 5e-3, 0.02)
 
     # --- phase 3c: timed 32-spp run ----------------------------------------
     render(box, RenderConfig(spp=1, max_ray_depth=DEPTH, width=W, height=H,
@@ -303,20 +486,96 @@ def main() -> int:
     cfg32 = RenderConfig(spp=32, max_ray_depth=DEPTH, width=W, height=H,
                          integrator="bdpt", seed=0, samples_per_chunk=8)
     torch.cuda.synchronize()
-    ib.brute_hit.launches = 0
+    ib.brute_hit.launches = icl.clustered_hit.launches = 0
     r32 = render(box, cfg32)
     launches = ib.brute_hit.launches
     st = r32.stats
     check(np.isfinite(r32.combined).all(), "non-finite pixels (32 spp)")
     check(r32.combined.shape == (H, W, 3), "32-spp shape")
-    check(launches > 0, "the main path launched the kernel no time")
+    check(launches > 0, "the Cornell-box path launched K1 no time")
+    check(icl.clustered_hit.launches == 0, "the Cornell-box path launched K2")
     print(f"[phase3c] 480x360 d5 32spp: {st['camera_samples_per_s']:.1f} "
           f"samples/s, {st['mrays_per_s']:.3f} Mrays/s measured "
           f"({st['rays']:.0f} rays, {st['wall_time_s']:.3f} s), brute_hit "
           f"launches {launches}, frame mean {r32.combined.mean():.6f} "
           f"({gpu})")
+    del box, soup
 
-    # ms / plain_ms: the 6,220,800-segment shadow batch, the largest launch
+    # --- phase 4: K2 -------------------------------------------------------
+    t0 = time.perf_counter()
+    mesh = make_mesh_cornell_box(MESH_LEVEL, device=dev)
+    t1 = time.perf_counter()
+    mesh = attach_accelerator(mesh)
+    t2 = time.perf_counter()
+    mcl = mesh.clusters
+    check(mcl is not None, "attach_accelerator attached no clusters")
+    print(f"[phase4] mesh box L{MESH_LEVEL}: {mesh.geometry.num_tris} "
+          f"triangles, {mcl.n_clusters} clusters, {mcl.n_blocks} blocks; "
+          f"scene {t1 - t0:.2f} s, cluster build {t2 - t1:.2f} s")
+    check(mesh.geometry.num_tris == 163_852, "mesh box triangle count")
+    soup2 = attach_accelerator(soup_scene(dev, n_tris=K2_RAYS, seed=4))
+    print(f"[phase4] soup: {soup2.geometry.num_tris} triangles, "
+          f"{soup2.clusters.n_clusters} clusters")
+    rep_mesh, err_mesh = compare_clustered(
+        mesh, ray_populations(mesh, K2_RAYS, 5), f"meshbox_L{MESH_LEVEL}")
+    rep_soup2, err_soup2 = compare_clustered(
+        soup2, ray_populations(soup2, K2_RAYS, 6), "soup65536")
+    del soup2
+    k2_times, err_walk = time_clustered(mesh, gpu)
+    k2_err = max(err_mesh, err_soup2, err_walk)
+
+    # --- phase 5a: K2 vs plain render, level 4 ------------------------------
+    mesh4 = attach_accelerator(make_mesh_cornell_box(4, device=dev))
+    cfg_s = RenderConfig(spp=4, max_ray_depth=DEPTH, width=120, height=90,
+                         integrator="bdpt", seed=0)
+    icl.clustered_hit.launches = 0
+    m_k = render(mesh4, cfg_s)
+    check(icl.clustered_hit.launches > 0, "the L4 render launched K2 no time")
+    m_p = render(mesh4, cfg_s, isect=PLAIN)
+    check(np.isfinite(m_p.combined).all(), "non-finite pixels (plain L4)")
+    rel_5a, _ = render_vs("phase5a", m_p.combined, m_k.combined, 1e-3, 0.01)
+    print(f"[phase5a] L4 120x90 d5 4spp: K2 {m_k.stats['wall_time_s']:.2f} s,"
+          f" plain {m_p.stats['wall_time_s']:.2f} s")
+    del mesh4
+
+    # --- phase 5b: level 6 against the JAX golden --------------------------
+    ref = np.load(GOLDEN_MESH)
+    rel_5b, blk_5b = render_vs("phase5b", ref["eye"] + ref["light"],
+                               render(mesh, cfg_g).combined, 5e-3, 0.02)
+
+    # --- phase 5c: timed level-6 run ---------------------------------------
+    render(mesh, RenderConfig(spp=1, max_ray_depth=DEPTH, width=W, height=H,
+                              integrator="bdpt", seed=1))  # warm-up pass
+    cfg8 = RenderConfig(spp=8, max_ray_depth=DEPTH, width=W, height=H,
+                        integrator="bdpt", seed=0, samples_per_chunk=8)
+    torch.cuda.synchronize()
+    ib.brute_hit.launches = icl.clustered_hit.launches = 0
+    r8 = render(mesh, cfg8)
+    k2_launches = icl.clustered_hit.launches
+    st8 = r8.stats
+    check(np.isfinite(r8.combined).all(), "non-finite pixels (L6 8 spp)")
+    check(r8.combined.shape == (H, W, 3), "L6 8-spp shape")
+    check(k2_launches > 0, "the large-scene path launched K2 no time")
+    check(ib.brute_hit.launches == 0, "the large-scene path launched K1")
+    print(f"[phase5c] L6 480x360 d5 8spp: {st8['camera_samples_per_s']:.1f} "
+          f"samples/s, {st8['mrays_per_s']:.3f} Mrays/s measured "
+          f"({st8['rays']:.0f} rays, {st8['wall_time_s']:.3f} s), "
+          f"clustered_hit launches {k2_launches}, frame mean "
+          f"{r8.combined.mean():.6f} ({gpu})")
+    # the same render through the sorted dispatch: its end-to-end cost
+    r8s = render(mesh, cfg8, isect=SORTED)
+    st8s = r8s.stats
+    rel_5s, _ = render_vs("phase5c-sorted", r8.combined, r8s.combined, 1e-3,
+                          0.01)
+    print(f"[phase5c] L6 480x360 d5 8spp through SORTED: "
+          f"{st8s['camera_samples_per_s']:.1f} samples/s, "
+          f"{st8s['mrays_per_s']:.3f} Mrays/s measured "
+          f"({st8s['wall_time_s']:.3f} s) ({gpu})")
+
+    # K1: ms / plain_ms of the 6,220,800-segment shadow batch.  K2: ms of
+    # the 6,220,800-segment shadow batch as the default dispatch launches
+    # it (unsorted); plain_ms of the 172,800-ray walk (the plain version is
+    # timed at the walk size only).
     kernels = {"kernels": [{
         "name": "brute_hit",
         "route": "cuda",
@@ -326,13 +585,39 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": times["shadow_6220800"]["kernel_ms"],
         "plain_ms": times["shadow_6220800"]["plain_ms"],
+    }, {
+        "name": "clustered_hit",
+        "route": "cuda",
+        "source": "bidirectional_pathtracing_tpu_torch/csrc/clustered_hit.cu",
+        "replaces":
+            "bidirectional_pathtracing_tpu/ops/intersect_clustered.py:70",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": min(k2_times["shadow_6220800"]["kernel_unsorted_ms"],
+                  k2_times["shadow_6220800"]["kernel_unsorted_ms_2"]),
+        "plain_ms": k2_times["walk_172800"]["plain_ms"],
+        "plain_ms_rays": "walk_172800",
+        "walk_172800_ms": min(k2_times["walk_172800"]["kernel_unsorted_ms"],
+                              k2_times["walk_172800"]["kernel_unsorted_ms_2"]),
     }]}
-    detail = {"gpu": gpu, "times": times,
-              "checks": {"cornell": rep_box, "soup8192": rep_soup},
-              "render": {"samples_per_s": st["camera_samples_per_s"],
-                         "mrays_per_s": st["mrays_per_s"],
-                         "rays": st["rays"], "wall_s": st["wall_time_s"],
-                         "phase3a_rel": rel, "phase3b_rel": rel_g}}
+    detail = {"gpu": gpu, "k1_times": times, "k2_times": k2_times,
+              "checks": {"cornell": rep_box, "soup8192": rep_soup,
+                         f"meshbox_L{MESH_LEVEL}": rep_mesh,
+                         "soup65536": rep_soup2},
+              "render_cornell": {"samples_per_s": st["camera_samples_per_s"],
+                                 "mrays_per_s": st["mrays_per_s"],
+                                 "rays": st["rays"], "wall_s": st["wall_time_s"],
+                                 "phase3a_rel": rel, "phase3b_rel": rel_g},
+              "render_meshbox": {"samples_per_s": st8["camera_samples_per_s"],
+                                 "mrays_per_s": st8["mrays_per_s"],
+                                 "rays": st8["rays"],
+                                 "wall_s": st8["wall_time_s"],
+                                 "phase5a_rel": rel_5a, "phase5b_rel": rel_5b,
+                                 "phase5b_block": blk_5b},
+              "render_meshbox_sorted": {
+                  "samples_per_s": st8s["camera_samples_per_s"],
+                  "mrays_per_s": st8s["mrays_per_s"],
+                  "wall_s": st8s["wall_time_s"], "vs_default_rel": rel_5s}}
     print(f"[detail] {json.dumps(detail)}")
     print(json.dumps(kernels))
     print(gpu_line())

@@ -1,13 +1,29 @@
-"""The port's render on the CPU against a golden written by the JAX package.
+"""The port's render on the CPU against goldens written by the JAX package.
 
-tests/golden/torch_port/cornell_mg_bdpt_48x36_d5_8spp_seed0.npz holds the
-eye and light images of the JAX package's BDPT render of the Cornell box
-with mirror and glass spheres at 48x36, depth 5, 8 spp, seed 0, on the CPU.
-chip_smoke.py holds the port's render on the card against the same file.
+tests/golden/torch_port/ holds the eye and light images of JAX package
+BDPT renders at 48x36, depth 5, 8 spp, seed 0, on the CPU:
 
-Regenerate it (CPU, about a minute) with
+  - cornell_mg_bdpt_48x36_d5_8spp_seed0.npz: the Cornell box with mirror
+    and glass spheres;
+  - meshbox_L6_bdpt_48x36_d5_8spp_seed0.npz: the same box with the spheres
+    as level-6 icosphere meshes (163,852 triangles), built by the JAX
+    package from the port's numpy arrays
+    (scene/procedural.py mesh_cornell_box_arrays), with attach_accelerator
+    (on the CPU the JAX package walks its BVH).
 
-    JAX_PLATFORMS=cpu python tests/test_torch_golden.py
+chip_smoke.py holds the port's renders on the card against both files.
+Only the Cornell box is rendered against its golden here: the port's CPU
+render of the 163,852-triangle box goes through the plain clustered hit,
+which tests every ray against every triangle, and takes far too long for
+the CPU tests.
+
+Write a golden that is missing (CPU; about a minute for the Cornell box,
+longer for the mesh box) with
+
+    JAX_PLATFORMS=cpu python tests/test_torch_golden.py [cornell|meshbox]
+
+With no argument every missing golden is written; a named one is
+rewritten.
 """
 
 import os
@@ -16,10 +32,13 @@ import sys
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GOLDEN = os.path.join(REPO, "tests", "golden", "torch_port",
-                      "cornell_mg_bdpt_48x36_d5_8spp_seed0.npz")
+GOLDEN_DIR = os.path.join(REPO, "tests", "golden", "torch_port")
+GOLDENS = {"cornell": "cornell_mg_bdpt_48x36_d5_8spp_seed0.npz",
+           "meshbox": "meshbox_L6_bdpt_48x36_d5_8spp_seed0.npz"}
+GOLDEN = os.path.join(GOLDEN_DIR, GOLDENS["cornell"])
 SETTINGS = dict(spp=8, max_ray_depth=5, width=48, height=36, seed=0)
 SPHERES = ("mirror", "glass")
+MESH_LEVEL = 6
 
 
 def block_err(ref, mine, nb=8, floor=0.05):
@@ -31,21 +50,42 @@ def block_err(ref, mine, nb=8, floor=0.05):
     return np.abs(a - b) / (np.abs(a) + floor)
 
 
-def write_golden():
-    """Render with the JAX package on the CPU and write the golden."""
+def _jax_scene(name):
+    """The JAX package's scene of golden `name`."""
+    if name == "cornell":
+        from bidirectional_pathtracing_tpu.scene.procedural import (
+            make_cornell_box)
+        return make_cornell_box(sphere_materials=SPHERES)
+    import jax.numpy as jnp
+    from bidirectional_pathtracing_tpu.scene import build, types
+    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+        mesh_cornell_box_arrays)
+    a = mesh_cornell_box_arrays(MESH_LEVEL, SPHERES)
+    scene = types.Scene(
+        geometry=types.make_geometry(a["tri_p"], a["tri_n"], a["tri_mat"]),
+        materials=types.make_materials(a["materials"]),
+        lights=types.make_lights(a["lights"]),
+        camera=types.Camera(**{k: jnp.asarray(v)
+                               for k, v in a["camera"].items()}))
+    return build.attach_accelerator(scene)
+
+
+def write_golden(name):
+    """Render golden `name` with the JAX package on the CPU and write it."""
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, REPO)
     from bidirectional_pathtracing_tpu.config import RenderConfig
-    from bidirectional_pathtracing_tpu.scene.procedural import make_cornell_box
     from bidirectional_pathtracing_tpu.utils.render import render
-    scene = make_cornell_box(sphere_materials=SPHERES)
-    res = render(scene, RenderConfig(integrator="bdpt", **SETTINGS))
-    os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
-    np.savez_compressed(GOLDEN, eye=res.eye.astype(np.float32),
+    res = render(_jax_scene(name),
+                 RenderConfig(integrator="bdpt", **SETTINGS))
+    path = os.path.join(GOLDEN_DIR, GOLDENS[name])
+    os.makedirs(GOLDEN_DIR, exist_ok=True)
+    np.savez_compressed(path, eye=res.eye.astype(np.float32),
                         light=res.light.astype(np.float32),
                         rays=np.float64(res.stats["rays"]))
-    print(f"wrote {GOLDEN}: eye mean {res.eye.mean():.6f}, "
-          f"light mean {res.light.mean():.6f}")
+    print(f"wrote {path}: eye mean {res.eye.mean():.6f}, "
+          f"light mean {res.light.mean():.6f}, "
+          f"{res.stats['wall_time_s']:.1f} s")
 
 
 def test_port_cpu_render_matches_jax_golden():
@@ -69,5 +109,23 @@ def test_port_cpu_render_matches_jax_golden():
         <= 1e-3 * float(ref["rays"]), (res.stats["rays"], ref["rays"])
 
 
+def test_goldens_are_present_and_sane():
+    """Both goldens load, with finite non-negative 36x48 images and a ray
+    count; the mesh box is no copy of the Cornell box."""
+    means = {}
+    for name, f in GOLDENS.items():
+        ref = np.load(os.path.join(GOLDEN_DIR, f))
+        for k in ("eye", "light"):
+            assert ref[k].shape == (36, 48, 3) and ref[k].dtype == np.float32
+            assert np.isfinite(ref[k]).all() and (ref[k] >= 0).all()
+        assert float(ref["rays"]) > 36 * 48 * 8
+        means[name] = float((ref["eye"] + ref["light"]).mean())
+    assert means["meshbox"] > 0 and means["meshbox"] != means["cornell"]
+
+
 if __name__ == "__main__":
-    write_golden()
+    names = sys.argv[1:] or [n for n, f in GOLDENS.items()
+                             if not os.path.exists(os.path.join(GOLDEN_DIR,
+                                                                f))]
+    for n in names:
+        write_golden(n)

@@ -232,12 +232,15 @@ class _FakeScene:
 
 
 def test_dispatch_routes_and_raises():
-    ti.check_brute_route(_FakeScene(8192, object()))       # brute kernel
-    ti.check_brute_route(_FakeScene(100_000, None))        # brute kernel
-    with pytest.raises(NotImplementedError, match="clustered"):
-        ti.check_brute_route(_FakeScene(8193, object()))
+    assert ti.kernel_route(_FakeScene(8192, object())) == "brute"
+    assert ti.kernel_route(_FakeScene(100_000, None)) == "brute"
+    assert ti.kernel_route(_FakeScene(8193, object())) == "clustered"
+    assert ti.kernel_route(_FakeScene(131_073, object())) == "clustered"
+    assert ti.kernel_route(_FakeScene(8193, object()),
+                           cuda=False) == "clustered"
+    assert ti.kernel_route(_FakeScene(131_073, None), cuda=False) == "plain"
     with pytest.raises(NotImplementedError, match="131072"):
-        ti.check_brute_route(_FakeScene(131_073, None))
+        ti.kernel_route(_FakeScene(131_073, None))
     # CPU tensors take the plain version, which matches the kernel path's
     # any-hit reading
     ts = port_scene(jproc.make_cornell_box())
@@ -247,4 +250,3 @@ def test_dispatch_routes_and_raises():
     hit = ti.scene_intersect(ts, o, d, 0.01, 100.0)
     assert bool(hit.valid[0]) and int(hit.mat[0]) == 0   # the back wall
     assert tib.brute_hit.launches == 0                    # no kernel on CPU
-

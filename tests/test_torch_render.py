@@ -3,7 +3,12 @@
 held as the single pass is in test_torch_bdpt.py (per-lane agreement,
 means over agreeing lanes, frame means), plus the stats dict.  A pixel here
 sums two lanes, so a flipped lane (see test_torch_bdpt.py) is twice as
-likely per pixel: both boxes are held to >= 98 % of pixels."""
+likely per pixel: both boxes are held to >= 98 % of pixels.
+
+The mesh-sphere box at level 4 (10,252 triangles, clusters attached) is
+held to the same criteria: the port takes the clustered route there (on
+the CPU through the clustered kernel's plain version), the JAX package its
+BVH walk."""
 
 import numpy as np
 import pytest
@@ -13,7 +18,13 @@ from bidirectional_pathtracing_tpu.scene import procedural as jproc
 from bidirectional_pathtracing_tpu.utils.render import render as jrender
 from bidirectional_pathtracing_tpu_torch.config import RenderConfig as TConfig
 from bidirectional_pathtracing_tpu_torch.utils import render as trender
+from bidirectional_pathtracing_tpu.scene import build as jbuild
+from bidirectional_pathtracing_tpu_torch.ops import intersect as ti
+from bidirectional_pathtracing_tpu_torch.ops import intersect_clustered as tic
+from bidirectional_pathtracing_tpu_torch.scene import build as tbuild
+from bidirectional_pathtracing_tpu_torch.scene import procedural as tproc
 from tests.test_torch_bdpt import agreement
+from tests.test_torch_clusters import jax_mesh_box
 from tests.test_torch_scene import port_scene
 
 SETTINGS = dict(spp=2, max_ray_depth=3, width=16, height=12, seed=0)
@@ -26,6 +37,36 @@ def test_render_matches_jax(spheres, min_lanes, mean_tol):
     js = jproc.make_cornell_box(sphere_materials=spheres)
     ref = jrender(js, JConfig(**SETTINGS))
     got = trender.render(port_scene(js), TConfig(**SETTINGS))
+    _check_render(ref, got, min_lanes, mean_tol)
+
+
+def test_mesh_box_render_matches_jax(monkeypatch):
+    """The large-scene path on the CPU: render() of the L=4 mesh box goes
+    through the clustered dispatch and never the brute-force scan,
+    and matches the JAX render at the mirror/glass criteria above."""
+    calls = []
+    plain = tic.clustered_hit_plain
+
+    def counted(*args, **kwargs):
+        calls.append(args[1].shape[0])
+        return plain(*args, **kwargs)
+
+    def refuse(*args):
+        raise AssertionError("the clustered route ran the brute scan")
+    monkeypatch.setattr(tic, "clustered_hit_plain", counted)
+    monkeypatch.setattr(ti, "intersect", refuse)
+    monkeypatch.setattr(ti, "occluded", refuse)
+    ts = tbuild.attach_accelerator(tproc.make_mesh_cornell_box(4))
+    assert ti.kernel_route(ts, cuda=False) == "clustered"
+    got = trender.render(ts, TConfig(**SETTINGS))
+    # 2 passes x (3 + 3 walks + 1 shadow batch)
+    assert len(calls) == 2 * 7
+    ref = jrender(jbuild.attach_accelerator(jax_mesh_box(4)),
+                  JConfig(**SETTINGS))
+    _check_render(ref, got, 0.98, 1e-3)
+
+
+def _check_render(ref, got, min_lanes, mean_tol):
     for k in ("eye", "light", "combined"):
         a, b = getattr(ref, k), getattr(got, k)
         assert b.shape == a.shape == (12, 16, 3)
