@@ -1,8 +1,7 @@
 """Bidirectional path tracer (Veach BDPT), wavefront, in PyTorch.
 
-Port of bidirectional_pathtracing_tpu/models/bdpt.py without the
-environment-light families (ROADMAP A7).  The math is the JAX package's,
-which ports the reference BidirectionalPathTracer
+Port of bidirectional_pathtracing_tpu/models/bdpt.py.  The math is the JAX
+package's, which ports the reference BidirectionalPathTracer
 (reference src/pathtracer/bidirection.cpp):
 
   - prepare_bidirectional_subpath (bidirection.cpp:20-102) is a Python loop
@@ -20,6 +19,12 @@ which ports the reference BidirectionalPathTracer
     form _mis_weight_walk; every edge is priced with the TRUE arrival
     direction.
   - Russian roulette is disabled, as in the reference.
+  - Environment lights (the JAX package's extension; the reference BDPT
+    asserts on them): primary-miss radiance, env NEE, env emission
+    subpaths splatted to the camera, and the eye walk's miss pickup, under
+    3-way power-2 MIS (see the env section of sample_pass).  Only the JAX
+    package's default "mis" scheme is ported, not its
+    BDPT_TPU_ENV_STRATEGY diagnostic knob.
 
 Subpath vertex indexing matches the reference: index 1 is the camera /
 light-source vertex, surface vertices run 2..max_depth+1.
@@ -36,11 +41,12 @@ import torch
 
 from bidirectional_pathtracing_tpu_torch.config import RenderConfig
 from bidirectional_pathtracing_tpu_torch.core.math import (
-    EPS_F, INF_D, make_coord_space, normalize, to_local, to_world,
+    EPS_F, INF_D, PI, make_coord_space, normalize, to_local, to_world,
 )
 from bidirectional_pathtracing_tpu_torch.core import rng
 from bidirectional_pathtracing_tpu_torch.ops import bsdf as bsdf_ops
 from bidirectional_pathtracing_tpu_torch.ops import camera_ops
+from bidirectional_pathtracing_tpu_torch.ops import envlight
 from bidirectional_pathtracing_tpu_torch.ops import lights as light_ops
 from bidirectional_pathtracing_tpu_torch.ops.intersect import (
     DISPATCH, Intersector, scene_occluded_segment)
@@ -472,6 +478,222 @@ def _pdf_area_edge(scene: Scene, path: Subpath, m: int, arrival,
         / torch.clamp_min(dist * dist, 1e-12)
 
 
+def _scene_bounds(scene: Scene):
+    """(center [3], bounding radius []) of the scene geometry: masked
+    reductions over the padded tables (JAX package :529-546)."""
+    g = scene.geometry
+    tv = g.tri_valid[:, None, None]
+    lo = torch.where(tv, g.tri_p, INF_D).amin(dim=(0, 1))
+    hi = torch.where(tv, g.tri_p, -INF_D).amax(dim=(0, 1))
+    if g.num_spheres > 0:
+        sv = g.sph_valid[:, None]
+        r = g.sph_r[:, None]
+        lo = torch.minimum(lo, torch.where(sv, g.sph_c - r, INF_D).amin(0))
+        hi = torch.maximum(hi, torch.where(sv, g.sph_c + r, -INF_D).amax(0))
+    ctr = 0.5 * (lo + hi)
+    rad = 0.5 * torch.linalg.vector_norm(hi - lo) * 1.05 + 1e-3
+    return ctr, rad
+
+
+def _env_subpath_splats(scene: Scene, keys, width: int, height: int,
+                        nv: int, ctr, rad_b, pdf_pos, light_img, inv_ns_aa,
+                        isect: Intersector = DISPATCH):
+    """Strategy family (c): env emission subpaths connected to the camera
+    as light-image splats, power-2-weighted against the eye-side env
+    strategies of each path class — (b) env NEE at the env-adjacent vertex
+    and (d) the eye walk's BSDF-sampled miss pickup (JAX package
+    :571-681).  The connections' shadow segments go to one any-hit launch.
+    The splats are added to light_img in place.  Returns the measured
+    rays."""
+    s = keys.shape[0]
+    u4 = rng.uniform(rng.fold(keys, 5100), (4,))
+    u2 = rng.uniform(rng.fold(keys, 5101), (2,))
+    center = ctr.expand(s, 3)
+    rad, o, d, pp, dp = envlight.sample_Le(scene.envmap, center, rad_b,
+                                           u4, u2)
+    lp, _ = _prepare_subpath(scene, o, d, torch.clamp_min(pp, 1e-12),
+                             torch.clamp_min(dp, 1e-12), rad, d, keys, 47,
+                             nv, EPS_F, INF_D, adjoint=True, isect=isect)
+    # path-density chains (the shared env dir_pdf cancels in the (b)/(c)
+    # ratio; strategy (d) replaces it with the BSDF's directional pdf, so
+    # its ratio carries the explicit B/E factor):
+    #  p_c(t) = pdf_pos*|cos(n_w1, beam)| * prod pcL   (env-side order)
+    #  p_b(t) = camdir*cos/d^2 * prod pbL              (camera-side order)
+    #  p_d(t) = p_b's spatial chain * B_w1/E_beam
+    pc_root = pdf_pos * torch.abs(_dot(lp.n[:, 2], d))
+    # a delta env-adjacent vertex: (b) cannot sample it (env NEE through a
+    # delta is f=0) and (d)'s Dirac density dominates (c)'s, so w_c = 0
+    delta_w1 = _is_delta(scene, lp.mat[:, 2])
+    e_beam = torch.clamp_min(dp, 1e-12)
+    # arrival wo at the env-adjacent vertex for t >= 3
+    w1_to_w2 = _seg(lp.pos[:, 2], lp.pos[:, 3])[0] if nv >= 3 else None
+    pcl = torch.ones((s,), device=keys.device)
+    pblint = torch.ones((s,), device=keys.device)
+
+    conns = []
+    for t in range(2, nv + 1):
+        vl_pos, vl_n = lp.pos[:, t], lp.n[:, t]
+        ci = camera_ops.sample_ray_pdf(scene.camera, vl_pos, width, height)
+        conn, dist = _seg(vl_pos, ci.point)
+        o2w_l = make_coord_space(vl_n)
+        light_ray, _ = _seg(vl_pos, lp.pos[:, t - 1])
+        f_light = bsdf_ops.eval_f(scene.materials, lp.mat[:, t],
+                                  to_local(o2w_l, conn),
+                                  to_local(o2w_l, light_ray))
+        g = torch.abs(_dot(vl_n, conn) * _dot(ci.normal, conn)) \
+            / torch.clamp_min(dist * dist, 1e-12)
+        contrib = (ci.we / ci.point_pdf[:, None]) * lp.alpha[:, t] \
+            * g[:, None] * f_light
+
+        if t >= 3:
+            # pcL: sampling v_t from v_{t-1}, arrived from env / v_{t-2}
+            pcl = pcl * _pdf_area_edge(
+                scene, lp, t - 1, t - 2 if t >= 4 else None, t,
+                arrival_w=(-d if t == 3 else None))
+            # pbL interior: sampling v_{t-2} from v_{t-1}, arrived from v_t
+            if t >= 4:
+                pblint = pblint * _pdf_area_edge(scene, lp, t - 1, t, t - 2)
+            # the camera-adjacent sampled edge of strategy (b)
+            pbl_t = _pdf_area_edge(scene, lp, t, None, t - 1,
+                                   arrival_w=conn)
+        else:
+            pbl_t = torch.ones((s,), device=keys.device)
+        cam_edge = _pdf_area_from(ci.dir_pdf, ci.point, vl_pos, vl_n)
+        p_b = cam_edge * pblint * pbl_t
+        p_c = pc_root * pcl
+        r = p_b / torch.clamp_min(p_c, 1e-30)
+        # (d) of this class: the eye walk reaches the env-adjacent vertex
+        # through (b)'s spatial chain and BSDF-samples the env direction;
+        # the deepest class has no (d) sampler
+        if t < nv:
+            wo_w1 = conn if t == 2 else w1_to_w2
+            b_w1 = _mis_pdf_local(scene, lp.mat[:, 2], wo_w1, -d,
+                                  lp.n[:, 2])
+            r_d = r * b_w1 / e_beam
+        else:
+            r_d = torch.zeros((s,), device=keys.device)
+        w_c = torch.where(delta_w1, 0.0, 1.0 / (1.0 + r * r + r_d * r_d))
+        w_c = torch.where(torch.isfinite(w_c), w_c, 0.0)
+
+        valid = lp.valid[:, t] & ci.in_frame
+        ill = torch.where(valid[:, None], contrib * w_c[:, None], 0.0)
+        ill = torch.where(torch.isfinite(ill), ill, 0.0)
+        flat = torch.clamp(ci.py.to(torch.int64) * width
+                           + ci.px.to(torch.int64), 0, height * width - 1)
+        conns.append((vl_pos, ci.point, valid, ill, flat))
+
+    blk, _, _ = scene_occluded_segment(
+        scene, torch.cat([c[0] for c in conns]),
+        torch.cat([c[1] for c in conns]),
+        active=torch.cat([c[2] for c in conns]), isect=isect)
+    blk = blk.reshape(len(conns), s)
+    for j, (_, _, valid, ill, flat) in enumerate(conns):
+        ok = valid & ~blk[j]
+        light_img.index_add_(0, flat,
+                             torch.where(ok[:, None], ill * inv_ns_aa, 0.0))
+    return sum(c[2].sum() for c in conns) + lp.valid[:, 1:nv].sum()
+
+
+def _env_eye_families(scene: Scene, eye: Subpath, steps, keys, nv: int,
+                      pdf_pos, isect: Intersector = DISPATCH):
+    """Strategy families (a), (b) and (d) on the eye subpath (JAX package
+    :818-925): primary-miss radiance; env NEE at every non-delta eye
+    vertex, its shadow rays in one any-hit launch; and the walk-miss pickup
+    from the eye walk's `steps`.  pdf_pos is (c)'s disk-origin density.
+    Returns (eye radiance [S,3], measured rays of the NEE batch)."""
+    s = keys.shape[0]
+    dev = keys.device
+    env = scene.envmap
+    eye_step_d, eye_step_miss = steps
+    # (a) the primary miss: the camera ray is the walk's init normal
+    eye_L = torch.where((~eye.valid[:, 2])[:, None],
+                        envlight.sample_dir(env, eye.n[:, 1]), 0.0)
+    o_all, d_all, c_all, a_all = [], [], [], []
+    pb_cum = torch.ones((s,), device=dev)      # camera-side pdf chain (area)
+    pc_int = torch.ones((s,), device=dev)      # env-side interior pdf chain
+    # (c) connects the camera-adjacent vertex (v2) to the camera; a delta
+    # v2 makes that f=0, so p_c drops out of the (b) and (d) weights there
+    delta_cam = _is_delta(scene, eye.mat[:, 2])
+    for i in range(2, nv + 1):
+        vi_valid = eye.valid[:, i] & ~_is_delta(scene, eye.mat[:, i])
+        u4 = rng.uniform(rng.fold(keys, 5000 + i * 13), (4,))
+        rad, wi_w, _, pdf = envlight.sample_L(env, eye.pos[:, i], u4)
+        pdf = torch.clamp_min(pdf, 1e-12)
+        o2w = make_coord_space(eye.n[:, i])
+        wo_w, _ = _seg(eye.pos[:, i], eye.pos[:, i - 1])
+        f = bsdf_ops.eval_f(scene.materials, eye.mat[:, i],
+                            to_local(o2w, wo_w), to_local(o2w, wi_w))
+        cos = torch.abs(_dot(wi_w, eye.n[:, i]))
+        contrib = eye.alpha[:, i] * rad * f * (cos / pdf)[:, None]
+        if i == 2:
+            ci0 = camera_ops.sample_ray_pdf(scene.camera, eye.pos[:, 2], 1, 1)
+            pb_cum = _pdf_area_from(ci0.dir_pdf, eye.pos[:, 1],
+                                    eye.pos[:, 2], eye.n[:, 2])
+        else:
+            # extend the chains camera->v_i and env-interior to v_{i-1}
+            pb_cum = pb_cum * _pdf_area_edge(scene, eye, i - 1, i - 2, i)
+            if i >= 4:
+                pc_int = pc_int * _pdf_area_edge(scene, eye, i - 1, i, i - 2)
+
+        def r_vs_c(env_dir, cos_i):
+            # p_c / p_b-chain for the class whose env-adjacent edge leaves
+            # v_i along env_dir (area measures; the env directional pdf
+            # cancels against (b)'s or is priced explicitly by (d))
+            pc_env = pdf_pos * cos_i
+            if i >= 3:
+                pc_env = pc_env * _pdf_area_edge(
+                    scene, eye, i, None, i - 1, arrival_w=env_dir)
+            rv = pc_env * pc_int / torch.clamp_min(pb_cum, 1e-30)
+            return torch.where(delta_cam, 0.0, rv)
+
+        # (b) competes with (c) [r_cb] and (d) [r_db = B/E]; the deepest
+        # class has no (d) sampler
+        r_cb = r_vs_c(wi_w, cos)
+        if i < nv:
+            b_nee = bsdf_ops.mis_pdf(scene.materials, eye.mat[:, i],
+                                     to_local(o2w, wo_w),
+                                     to_local(o2w, wi_w))
+            r_db = b_nee / pdf
+        else:
+            r_db = torch.zeros((s,), device=dev)
+        w_b = 1.0 / (1.0 + r_cb * r_cb + r_db * r_db)
+        o_all.append(eye.pos[:, i])
+        d_all.append(wi_w)
+        c_all.append(torch.where(vi_valid[:, None], contrib * w_b[:, None],
+                                 0.0))
+        a_all.append(vi_valid)
+
+        # (d) the walk step FROM v_i missed the scene: collect the env
+        # radiance along it (alpha at the would-be vertex i+1 holds on
+        # misses); no extra rays
+        if i < nv:
+            d_m = eye_step_d[:, i - 1]
+            miss_m = eye_step_miss[:, i - 1] & eye.valid[:, i]
+            contrib_d = eye.alpha[:, i + 1] * envlight.sample_dir(env, d_m)
+            e_d = torch.clamp_min(envlight.pdf_dir(env, d_m), 1e-12)
+            b_d = torch.clamp_min(
+                bsdf_ops.mis_pdf(scene.materials, eye.mat[:, i],
+                                 to_local(o2w, wo_w), to_local(o2w, d_m)),
+                1e-12)
+            r_b = e_d / b_d                       # p_b / p_d
+            cos_d = torch.abs(_dot(d_m, eye.n[:, i]))
+            r_c = r_vs_c(d_m, cos_d) * r_b        # p_c / p_d
+            w_d = torch.where(_is_delta(scene, eye.mat[:, i]), 1.0,
+                              1.0 / (1.0 + r_b * r_b + r_c * r_c))
+            ill_d = torch.where(
+                miss_m[:, None],
+                torch.where(torch.isfinite(contrib_d), contrib_d, 0.0)
+                * w_d[:, None], 0.0)
+            eye_L = eye_L + torch.where(torch.isfinite(ill_d), ill_d, 0.0)
+    act = torch.cat(a_all)
+    blocked = isect.occluded(scene, torch.cat(o_all), torch.cat(d_all),
+                             EPS_F, torch.where(act, INF_D, -1.0))
+    blocked = blocked.reshape(len(o_all), s)
+    for j, c in enumerate(c_all):
+        eye_L = eye_L + torch.where(blocked[j][:, None], 0.0, c)
+    return eye_L, act.sum()
+
+
 def _eye_on_light_pdfs(scene: Scene, pos, prev_pos):
     """For the t=0 case: find the light containing the eye endpoint
     (bidirection.cpp:159-175, 307-328).  Returns (found, point_pdf,
@@ -520,9 +742,6 @@ def sample_pass(scene: Scene, key, width: int, height: int, pixel_ids,
     total_rays, bvh.h:136), as an int64 tensor.
     isect: the closest-hit / any-hit pair to go through (ops/intersect.py).
     """
-    if scene.envmap is not None:
-        raise NotImplementedError(
-            "environment lights are not ported yet (ROADMAP A7)")
     s = pixel_ids.shape[0]
     dev = pixel_ids.device
     nv = cfg.max_ray_depth + 1           # real vertices per subpath
@@ -540,7 +759,7 @@ def sample_pass(scene: Scene, key, width: int, height: int, pixel_ids,
     o, d = camera_ops.generate_ray(
         scene.camera, (px + u[:, 0]) / width, (py + u[:, 1]) / height)
     ones = torch.ones((s,), device=dev)
-    eye, _ = _prepare_subpath(
+    eye, eye_steps = _prepare_subpath(
         scene, o, d, ones, ones, torch.ones((s, 3), device=dev),
         d, keys, 10, nv, scene.camera.nclip, scene.camera.fclip, isect=isect)
 
@@ -562,6 +781,35 @@ def sample_pass(scene: Scene, key, width: int, height: int, pixel_ids,
 
     eye_L = torch.zeros((s, 3), device=dev)
     light_img = torch.zeros((height * width, 3), device=dev)
+
+    # --- environment light (the JAX package's extension: the reference
+    # BDPT asserts on env lights, environment_light.cpp:182-208).  Strategy
+    # families, as in the JAX package's sample_pass (:778-931):
+    #   (a) env radiance on the PRIMARY miss, the only sampler of the
+    #       0-surface-vertex class, weight 1;
+    #   (b) env NEE at every non-delta eye vertex;
+    #   (c) env emission subpaths (envlight.sample_Le), walked like a light
+    #       subpath and splatted to the camera;
+    #   (d) the eye walk's miss pickup: the env radiance along a BSDF-
+    #       sampled step that leaves the scene, the only sampler that
+    #       reaches the env through all-delta chains.
+    # A class with k >= 1 surface vertices is sampled by (b) at its
+    # env-adjacent vertex, (c) with a k-vertex subpath and (d) at the k-th
+    # walk step, under power-2 MIS from the full path densities; classes
+    # whose env-adjacent vertex is delta belong to (d) alone, and the
+    # deepest class has no (d) sampler.  In mixed env + area scenes the
+    # env families run on their own (the env is not in the area-light
+    # pick): env paths and area-light paths are disjoint supports, so the
+    # (s,t) families keep their own MIS untouched.
+    env_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    if scene.envmap is not None and nv >= 2:
+        ctr, rad_b = _scene_bounds(scene)
+        pdf_pos = 1.0 / (PI * rad_b * rad_b)
+        eye_L, env_rays = _env_eye_families(scene, eye, eye_steps, keys, nv,
+                                            pdf_pos, isect=isect)
+        env_rays = env_rays + _env_subpath_splats(
+            scene, keys, width, height, nv, ctr, rad_b, pdf_pos, light_img,
+            inv_ns_aa, isect=isect)
 
     # --- connections: i_eye in 1..nv, i_light in 0..nv --------------------
     combos = [(i_e, i_l) for i_e in range(1, nv + 1)
@@ -619,7 +867,7 @@ def sample_pass(scene: Scene, key, width: int, height: int, pixel_ids,
         return eye_L, light_img
 
     # measured rays: walk launch i is live for lanes valid at vertex i
-    rays = eye.valid[:, 1:nv].sum()
+    rays = eye.valid[:, 1:nv].sum() + env_rays
     if light is not None:
         rays = rays + light.valid[:, 1:nv].sum()
     for c in seg_combos:

@@ -5,6 +5,13 @@ procedural.py make_cornell_box (:26-101), building the same arrays leaf by
 leaf and bit for bit, as torch tensors on `device`.  make_mesh_cornell_box
 is the same box with icosphere meshes in place of the spheres, the port's
 large-scene configuration; mesh_cornell_box_arrays gives its raw arrays.
+synthetic_sky and make_open_env_scene are copies of the JAX package's
+examples/inverse_rendering.py `_env_image` fallback (:49-58) and
+`_open_scene` (:61-95): the environment-lit scene both packages can build
+(the repository's .exr files are git-lfs stubs).
+
+Every builder puts its tensors on the card unless the caller names another
+device.
 """
 
 from __future__ import annotations
@@ -97,7 +104,7 @@ def _camera(values: dict, device) -> Camera:
 
 def make_cornell_box(width: int = 120, height: int = 90,
                      sphere_materials=("diffuse", "diffuse"),
-                     device="cpu") -> Scene:
+                     device="cuda") -> Scene:
     """A 2x1.5x2 Cornell box, open front (+z), two spheres, ceiling light.
 
     width/height are accepted for signature parity; the camera's field of
@@ -171,7 +178,7 @@ def mesh_cornell_box_arrays(sphere_level: int,
 
 def make_mesh_cornell_box(sphere_level: int = 6,
                           sphere_materials=("mirror", "glass"),
-                          device="cpu") -> Scene:
+                          device="cuda") -> Scene:
     """The Cornell box of make_cornell_box with its two analytic spheres
     replaced by icosphere meshes: the same centres, radii and materials,
     smooth normals (the unit vertex directions), 20 * 4**sphere_level
@@ -191,3 +198,54 @@ def make_mesh_cornell_box(sphere_level: int = 6,
         materials=make_materials(a["materials"], device=device),
         lights=make_lights(a["lights"], device=device),
         camera=_camera(a["camera"], device))
+
+
+def synthetic_sky() -> np.ndarray:
+    """The 32x64 HDR sky of examples/inverse_rendering.py:49-58 (f32
+    [32,64,3]): a blue-to-warm gradient over theta and a sun blob of
+    radiance 30 at (x, y) = (16, 8)."""
+    hh, ww = 32, 64
+    y, x = np.mgrid[0:hh, 0:ww]
+    theta = (y + 0.5) / hh * np.pi
+    img = np.zeros((hh, ww, 3), np.float32)
+    img[..., 2] = 0.5 + 0.4 * np.cos(theta)
+    img[..., 1] = 0.35 + 0.2 * np.cos(theta)
+    img[..., 0] = 0.25 + 0.1 * np.sin(theta)
+    blob = np.exp(-(((x - ww / 4) / 2.5) ** 2 + ((y - hh / 4) / 2.5) ** 2))
+    img += 30.0 * blob[..., None] * np.array([1.0, 0.95, 0.8], np.float32)
+    return img
+
+
+def make_open_env_scene(device="cuda") -> Scene:
+    """An open scene lit only by an environment map: an 8x8 ground quad
+    and two diffuse spheres, no lights (examples/inverse_rendering.py
+    :61-95), with synthetic_sky() attached as its envmap."""
+    from bidirectional_pathtracing_tpu_torch.ops.envlight import build_envmap
+    s = 4.0
+    tri_p, tri_n = _quad(np.array([-s, 0, s]), np.array([s, 0, s]),
+                         np.array([s, 0, -s]), np.array([-s, 0, -s]),
+                         np.array([0.0, 1.0, 0.0]))
+    geometry = make_geometry(
+        np.asarray(tri_p), np.asarray(tri_n), np.zeros(len(tri_p), np.int32),
+        sph_c=np.array([[-0.8, 0.6, 0.0], [0.9, 0.45, 0.6]]),
+        sph_r=np.array([0.6, 0.45]), sph_mat=np.array([1, 2], np.int32),
+        device=device)
+    materials = make_materials([
+        {"kind": MAT_DIFFUSE, "albedo": np.array([0.55, 0.5, 0.45])},
+        {"kind": MAT_DIFFUSE, "albedo": np.array([0.7, 0.25, 0.2])},
+        {"kind": MAT_DIFFUSE, "albedo": np.array([0.2, 0.35, 0.7])},
+    ], device=device)
+    pos = np.array([0.0, 1.6, 5.0])
+    back = pos - np.array([0.0, 0.7, 0.0])
+    back = back / np.linalg.norm(back)
+    right = np.cross(np.array([0.0, 1.0, 0.0]), back)
+    right /= np.linalg.norm(right)
+    up = np.cross(back, right)
+    camera = {k: np.asarray(v, np.float32) for k, v in (
+        ("c2w", np.stack([right, up, back], axis=1)), ("pos", pos),
+        ("hfov", 50.0), ("vfov", 38.0), ("nclip", 0.1), ("fclip", 100.0),
+        ("lens_radius", 0.0), ("focal_distance", 4.7))}
+    return Scene(geometry=geometry, materials=materials,
+                 lights=make_lights([], device=device),
+                 camera=_camera(camera, device),
+                 envmap=build_envmap(synthetic_sky(), device=device))

@@ -15,10 +15,14 @@ jax-free so the port runs where jax is not installed.  from_numpy builds a
 Scene from the JAX scene's leaves converted with np.asarray, so both
 packages compute on identical numbers.
 
-The cluster tables (scene/clusters.py ClusteredTris) ride along in both:
-a JAX scene with flat clusters converts leaf by leaf.
+The cluster tables (scene/clusters.py ClusteredTris) and the environment
+map (Envmap) ride along in both: a JAX scene with flat clusters or an
+envmap converts leaf by leaf.
 
-Not ported yet: BVHArrays and Envmap (ROADMAP).
+The builders put their tensors on the card unless the caller names another
+device (device="cpu" in the CPU tests); without a card they raise.
+
+Not ported yet: BVHArrays (ROADMAP).
 """
 
 from __future__ import annotations
@@ -125,6 +129,16 @@ class Camera(NamedTuple):
     focal_distance: torch.Tensor  # f32 []
 
 
+class Envmap(NamedTuple):
+    """HDR environment map with 2-stage CDF importance sampling
+    (environment_light.cpp:18-62); built by ops/envlight.py build_envmap."""
+
+    data: torch.Tensor             # f32 [H,W,3]
+    pdf: torch.Tensor              # f32 [H,W]  solid-angle-marginalised pdf
+    marginal_cdf: torch.Tensor     # f32 [H]
+    conditional_cdf: torch.Tensor  # f32 [H,W]
+
+
 class Scene(NamedTuple):
     geometry: Geometry
     materials: Materials
@@ -145,10 +159,13 @@ _PARTS = (("geometry", Geometry), ("materials", Materials),
 
 def to_numpy(scene: Scene) -> dict[str, np.ndarray]:
     """Flatten a Scene to {"geometry.tri_p": array, ...} (host copies),
-    with "clusters.<field>" leaves when cluster tables are attached."""
+    with "clusters.<field>" leaves when cluster tables are attached and
+    "envmap.<field>" leaves when an envmap is."""
     parts = list(_PARTS)
     if scene.clusters is not None:
         parts.append(("clusters", type(scene.clusters)))
+    if scene.envmap is not None:
+        parts.append(("envmap", Envmap))
     out = {}
     for part, cls in parts:
         sub = getattr(scene, part)
@@ -165,7 +182,8 @@ def from_numpy(arrays: dict[str, np.ndarray], device) -> Scene:
     bool).  "clusters.*" leaves of the flat layout become ClusteredTris; a
     JAX table's `tris` [C, 16, 128] is cut to its 9 vertex rows (rows
     9..15 are TPU DMA padding).  The paired layout (a "clusters.sub_marker"
-    leaf) is not ported and raises.  A BVH or an envmap is not read.
+    leaf) is not ported and raises.  "envmap.*" leaves become an Envmap.
+    A BVH is not read.
     """
     from bidirectional_pathtracing_tpu_torch.scene.clusters import (
         ClusteredTris)
@@ -186,6 +204,9 @@ def from_numpy(arrays: dict[str, np.ndarray], device) -> Scene:
         leaves["tris"] = np.asarray(leaves["tris"])[:, :9]
         parts["clusters"] = ClusteredTris(**{f: conv(a)
                                              for f, a in leaves.items()})
+    if "envmap.data" in arrays:
+        parts["envmap"] = Envmap(**{f: conv(arrays[f"envmap.{f}"])
+                                    for f in Envmap._fields})
     return Scene(**parts)
 
 
@@ -198,7 +219,7 @@ def _pad_to(arr: np.ndarray, n: int, fill=0) -> np.ndarray:
 
 def make_geometry(tri_p, tri_n, tri_mat, sph_c=None, sph_r=None, sph_mat=None,
                   min_tris: int = 1, min_spheres: int = 1,
-                  device="cpu") -> Geometry:
+                  device="cuda") -> Geometry:
     """Build padded Geometry from numpy arrays (copy of the JAX package's
     scene/types.py make_geometry, :175-210)."""
     tri_p = np.asarray(tri_p, np.float32).reshape(-1, 3, 3)
@@ -241,7 +262,7 @@ def _table(records, rows: int, name: str, dim: int, default, device):
     return torch.from_numpy(out).to(device)
 
 
-def make_materials(records, device="cpu") -> Materials:
+def make_materials(records, device="cuda") -> Materials:
     """records: list of dicts with keys kind + per-kind params (copy of
     scene/types.py make_materials, :213-237)."""
     m = max(len(records), 1)
@@ -265,7 +286,7 @@ def make_materials(records, device="cpu") -> Materials:
     )
 
 
-def make_lights(records, device="cpu") -> Lights:
+def make_lights(records, device="cuda") -> Lights:
     """Light table (copy of scene/types.py make_lights, :240-263).  No
     padding: a scene with zero lights gets zero-length tensors."""
     ell = len(records)

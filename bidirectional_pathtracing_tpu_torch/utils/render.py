@@ -9,6 +9,11 @@ accumulates passes there in chunks of cfg.samples_per_chunk.  Pass i uses
 the key fold_in(key(seed), i) (threefry, core/rng.py), as the JAX package
 does, so both packages draw the same samples.
 
+A scene with an envmap (scene/types.py Envmap, built by ops/envlight.py
+build_envmap) renders with the environment-light families of sample_pass.
+cfg.envmap_path is not read: loading an .exr waits for the EXR reader
+(ROADMAP A9), so the caller attaches the envmap to the scene.
+
 Not ported yet (ROADMAP): the unidirectional PT branch and adaptive
 sampling, checkpoint/resume, cooperative cancel, AOT warm start, cell mode
 and autofocus.
@@ -97,6 +102,7 @@ def render(scene: Scene, cfg: RenderConfig, seed: Optional[int] = None,
     isect: the intersection pair every pass goes through; the default
     dispatches by device (the CUDA kernel on the card, the plain torch
     version on the CPU), ops/intersect.py PLAIN forces the plain version.
+    The scene's envmap, if any, lights it; cfg.envmap_path is not read.
     """
     if cfg.integrator != "bdpt":
         raise NotImplementedError(

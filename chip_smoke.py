@@ -8,9 +8,9 @@ a zero exit):
 
   0. environment: torch / CUDA versions and the card's name and power
      limit; a CUDA device is required.
-  1. build both hit kernels (csrc/brute_hit.cu, csrc/clustered_hit.cu) from
-     the sources in this checkout, one nvcc each, started together, and
-     print what ptxas reports for each.
+  1. build the kernels (csrc/brute_hit.cu, csrc/clustered_hit.cu,
+     csrc/mt_bench.cu) from the sources in this checkout, one nvcc each,
+     started together, and print what ptxas reports for each.
   2. the brute-force kernel K1 against its plain torch version on the card,
      closest hit and any hit, on the Cornell box (12 triangles, 2 spheres)
      and an 8,192-triangle soup with the same spheres, over camera, bounce
@@ -39,6 +39,35 @@ a zero exit):
        c. level 6, 480x360 d5 8 spp in one chunk after a warm-up pass, with
           K2's launch count taken over that run alone; then the same render
           through the sorted dispatch (SORTED), timed and held against it.
+  6. K3, the per-cluster Möller–Trumbore microbenchmark (csrc/mt_bench.cu):
+     both kernels, both `late` settings, against their plain versions at
+     4,096 rays and 16 visits, bitwise on t and index; the vpu and linear
+     forms' agreement; then its entry point (tools/mxu_mt_bench.py run) at
+     65,536 and 256 rays, 64 visits, with K3's launch counts taken over that
+     run alone, and every variant's output there held bitwise against its
+     plain version on the same inputs (the plain versions timed at 65,536
+     rays).
+  7. the environment-light path: render() of the open env scene (2
+     triangles, 2 spheres, the synthetic sky, no lights):
+       a. 120x90 d5 4 spp through K1 against the same render through the
+          plain version;
+       b. 48x36 d5 8 spp against the JAX package's golden;
+       c. 480x360 d5 8 spp after a warm-up pass, and the same for the level-6
+          mesh box with the sky attached (env and area light, through K2),
+          each with the K1 and K2 launch counts of that run alone.
+
+Every kernel's line carries a bound: the larger of the bytes its launch
+must move (each input read once, each output written once) over 3.35 TB/s
+and the operations this run's inputs need over 67 TFLOP/s FP32 (the H100
+SXM data sheet): 55 flops per ray-triangle test (the JAX microbenchmark's
+Möller–Trumbore count), 30 per ray-sphere test and 27 per slab test.  A
+ray moves o and d in and t and prim out, and min_t / max_t only where the
+launch gets them per ray (a scalar window is broadcast, not read).  K2's
+any-hit bound counts an occluded segment as one triangle test (the least
+that proves a blocker) and an unoccluded one in full: the slab test of
+every block, of every member cluster of each block it crosses, and every
+filled slot of each cluster it crosses.  library_ms is null: no single
+PyTorch call computes a closest hit.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and before that one JSON line
@@ -65,6 +94,13 @@ WALK_RAYS = W * H                              # one walk bounce
 SHADOW_RAYS = W * H * (DEPTH + 1) * (DEPTH + 1)  # the 36-combo shadow batch
 K2_RAYS = 65536                                # rays per K2 check population
 MESH_LEVEL = 6                                 # 163,852 triangles
+GOLDEN_ENV = os.path.join(GOLDEN_DIR, "envopen_bdpt_48x36_d5_8spp_seed0.npz")
+K3_CHECK = (4096, 16)                          # rays, visits of the K3 checks
+K3_ITERS = 64                                  # visits of the K3 timing
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 flop/s (no tensor
+# cores); the per-test operation counts of the bounds
+HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
+MT_FLOPS, SPHERE_FLOPS, SLAB_FLOPS = 55, 30, 27
 
 
 class PhaseError(RuntimeError):
@@ -322,6 +358,7 @@ def time_clustered(scene, gpu):
             ("walk_172800", (o_w, d_w, lo_w, hi_w), False),
             ("shadow_6220800", (o_s, d_s, lo_s, hi_s), True)):
         r = o.shape[0]
+        lo_in, hi_in = lo, hi
         lo = torch.as_tensor(lo, device=o.device).expand(r).contiguous()
         hi = torch.as_tensor(hi, device=o.device).expand(r).contiguous()
 
@@ -365,7 +402,10 @@ def time_clustered(scene, gpu):
         check(same, f"{label}: the sorted dispatch differs from the default")
         rec["sorted_equal_bitwise"] = True
         del t_s, s_s, got, ref
-        if not any_hit:
+        if any_hit:
+            rec["bound_bytes"], rec["bound_ops"] = clustered_work(
+                cl, o, d, lo, hi, s_u >= 0, ray_bytes(r, lo_in, hi_in))
+        else:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -382,6 +422,79 @@ def time_clustered(scene, gpu):
     return times, max_err
 
 
+def bound_ms(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of bytes over HBM_BPS and
+    operations over FP32_FLOPS, in ms."""
+    t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, n_ops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ray_bytes(r, lo, hi):
+    """Bytes a hit launch over r rays must move: o and d in (24 B), t and
+    prim / slot out (8 B), and 4 B for each of the window bounds lo, hi
+    that is a per-ray tensor; a scalar bound is broadcast, not read."""
+    import torch
+    per_ray = [torch.is_tensor(x) and x.numel() > 1 for x in (lo, hi)]
+    return (32 + 4 * sum(per_ray)) * r
+
+
+def brute_work(geom, lo, hi, r):
+    """(bytes, operations) of K1 over r rays with window [lo, hi]: every
+    ray tests every triangle and sphere of the tables."""
+    n_t = int(geom.tri_valid.sum())
+    n_q = int(geom.sph_valid.sum())
+    n_bytes = (ray_bytes(r, lo, hi) + 36 * geom.num_tris
+               + 20 * geom.num_spheres)
+    return n_bytes, r * (n_t * MT_FLOPS + n_q * SPHERE_FLOPS)
+
+
+def clustered_work(cl, o, d, lo, hi, occluded, n_ray_bytes):
+    """(bytes, operations) K2's any hit needs for segments [lo, hi], with
+    occluded the [R] any-hit result: an occluded segment needs one
+    Möller–Trumbore test (its blocker); an unoccluded live one a slab test
+    of every block, of every member cluster of each block it crosses in
+    [lo, hi], and Möller–Trumbore on every filled slot of each cluster it
+    crosses.  Counted on the card over 32 clusters and 2^19 rays at a
+    time."""
+    import torch
+    from bidirectional_pathtracing_tpu_torch.core.math import INF_D
+    from bidirectional_pathtracing_tpu_torch.scene.clusters import BLOCK_SIZE
+    n_c = cl.n_clusters
+    filled = (cl.pad2global.view(n_c, -1) >= 0).sum(1).to(torch.float64)
+    live = (hi >= lo) & ~occluded
+    inv_d = torch.where(d == 0, INF_D, 1.0 / torch.where(d == 0, 1.0, d))
+    # boxes as [6, N]: blocks, then clusters
+    boxes = torch.cat([cl.block_b[:cl.n_blocks, :6].t(), cl.cluster_b[:6, :n_c]],
+                      dim=1)
+    per_box = torch.cat([
+        torch.tensor([min(BLOCK_SIZE, n_c - b * BLOCK_SIZE) * SLAB_FLOPS
+                      for b in range(cl.n_blocks)], dtype=torch.float64,
+                     device=o.device),
+        filled * MT_FLOPS])
+    ops = (float(live.sum()) * cl.n_blocks * SLAB_FLOPS
+           + float(occluded.sum()) * MT_FLOPS)
+    for a0 in range(0, o.shape[0], 1 << 19):
+        a1 = min(a0 + (1 << 19), o.shape[0])
+        oo, ii = o[a0:a1], inv_d[a0:a1]
+        for c0 in range(0, boxes.shape[1], 32):
+            bx = boxes[:, c0:c0 + 32]
+            tmin = torch.full((bx.shape[1], a1 - a0), -INF_D, device=o.device)
+            tmax = torch.full_like(tmin, INF_D)
+            for ax in range(3):
+                u = (bx[ax, :, None] - oo[None, :, ax]) * ii[None, :, ax]
+                v = (bx[3 + ax, :, None] - oo[None, :, ax]) * ii[None, :, ax]
+                tmin = torch.maximum(tmin, torch.minimum(u, v))
+                tmax = torch.minimum(tmax, torch.maximum(u, v))
+            crossed = ((tmax >= tmin) & (tmax >= lo[None, a0:a1])
+                       & (tmin <= hi[None, a0:a1]) & live[None, a0:a1])
+            ops += float(crossed.sum(1).to(torch.float64)
+                         @ per_box[c0:c0 + 32])
+    n_bytes = (n_ray_bytes + 4 * cl.tris.numel()
+               + 4 * cl.pad2global.numel() + 4 * cl.cluster_b.numel()
+               + 4 * cl.block_b.numel())
+    return n_bytes, ops
+
+
 def render_vs(label, ref_c, got, mean_tol, block_tol):
     """Frame-mean and 8x8-block gates of a render against a reference."""
     check(np.isfinite(got).all(), f"{label}: non-finite pixels")
@@ -393,6 +506,172 @@ def render_vs(label, ref_c, got, mean_tol, block_tol):
     check(rel <= mean_tol, f"{label}: frame means differ by {rel:.3e}")
     check(err.mean() <= block_tol, f"{label}: block error {err.mean():.3e}")
     return rel, float(err.mean())
+
+
+def phase6_k3(dev, gpu):
+    """K3 against its plain versions, then its entry point timed.  Returns
+    {"kernels": [mt_vpu line, mt_linear line], "detail": {...}}."""
+    import torch
+    from bidirectional_pathtracing_tpu_torch.ops import mt_bench as mb
+    from bidirectional_pathtracing_tpu_torch.tools import mxu_mt_bench
+    r, iters = K3_CHECK
+    rays, tris, amat = (torch.from_numpy(a).to(dev)
+                        for a in mb.make_inputs(r))
+    detail, outs = {}, {}
+    for name, fn, plain, table in (
+            ("mt_vpu", mb.mt_vpu, mb.mt_vpu_plain, tris),
+            ("mt_linear", mb.mt_linear, mb.mt_linear_plain, amat)):
+        for late in (False, True):
+            got = fn(rays, table, iters, late)
+            ref = plain(rays, table, iters, late)
+            torch.cuda.synchronize()
+            label = f"{name}{'_late' if late else ''}"
+            bad = int((got != ref).any(0).sum())
+            rec = {"rays": r, "iters": iters,
+                   "hits": int((ref[1] >= 0).sum()), "differ": bad}
+            print(f"[phase6] {label} vs plain: {json.dumps(rec)}")
+            check(bad == 0, f"{label}: {bad} of {r} rays differ from the "
+                  "plain version (bitwise gate)")
+            detail[label] = rec
+            outs[label] = got
+    agree = int((outs["mt_vpu"][1] == outs["mt_linear"][1]).sum())
+    print(f"[phase6] vpu and linear forms pick the same winner on {agree} of "
+          f"{r} rays")
+    detail["vpu_linear_agree"] = agree
+
+    # the entry point, with K3's launches counted over it alone
+    mb.mt_vpu.launches = mb.mt_linear.launches = 0
+    res = {}
+    for n in (65536, 256):
+        if n == 256:
+            print("[phase6] R=256: one block of 256 threads on one SM")
+        res[n] = mxu_mt_bench.run(K3_ITERS, n, dev,
+                                  log=lambda line: print(f"[phase6] {line}"))
+    launches = {"mt_vpu": mb.mt_vpu.launches,
+                "mt_linear": mb.mt_linear.launches}
+    check(min(launches.values()) > 0, f"K3 launch counts {launches}")
+    detail["launches"] = launches
+
+    # the entry point's outputs against the plain versions on its inputs
+    # (bitwise); the non-late plain calls at 65,536 rays are the timed ones
+    plain_ms, max_err, runs = {}, {"mt_vpu": 0.0, "mt_linear": 0.0}, {}
+    for n in (65536, 256):
+        rays, tris, amat = (torch.from_numpy(a).to(dev)
+                            for a in mb.make_inputs(n))
+        runs[n] = {}
+        for variant, name, plain, table, late in (
+                ("vpu", "mt_vpu", mb.mt_vpu_plain, tris, False),
+                ("vpu-late", "mt_vpu", mb.mt_vpu_plain, tris, True),
+                ("mxu", "mt_linear", mb.mt_linear_plain, amat, False),
+                ("mxu-late", "mt_linear", mb.mt_linear_plain, amat, True)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ref = plain(rays, table, K3_ITERS, late)
+            end.record()
+            torch.cuda.synchronize()
+            if n == 65536 and not late:
+                plain_ms[name] = start.elapsed_time(end)
+            rec = res[n][variant]
+            got = rec.pop("out")
+            bad = int((got != ref).any(0).sum())
+            err = float((got - ref).abs().max())
+            max_err[name] = max(max_err[name], err)
+            rec.update(differ=bad, max_abs_err=err)
+            runs[n][variant] = rec
+            print(f"[phase6] {variant} R={n} iters={K3_ITERS} vs plain: "
+                  f"{bad} rays differ, max |diff| {err}")
+            check(bad == 0, f"{variant} R={n}: {bad} of {n} rays differ from "
+                  "the plain version (bitwise gate)")
+        del rays, tris, amat
+    detail["runs"] = runs
+
+    big = 65536
+    n_ops = MT_FLOPS * mb.TC * big * K3_ITERS
+    lines = []
+    for name, variant, table_bytes, fn_file_line in (
+            ("mt_vpu", "vpu", 4 * mb.NSLOT * 9 * mb.TC,   # the vertex rows
+             "tools/profiling/mxu_mt_bench.py:48"),
+            ("mt_linear", "mxu", 4 * mb.NSLOT * 4 * mb.TC * mb.N_FEAT,
+             "tools/profiling/mxu_mt_bench.py:99")):
+        n_bytes = 4 * (8 + 2) * big + table_bytes
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        ms = runs[big][variant]["ms"]
+        print(f"[phase6] {name} R={big} iters={K3_ITERS}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms[name]:.3f} ms, bound {b_ms:.4f} ms ({b_by}) "
+              f"({gpu})")
+        lines.append({
+            "name": name, "route": "cuda",
+            "source": "bidirectional_pathtracing_tpu_torch/csrc/mt_bench.cu",
+            "replaces": fn_file_line, "launches": launches[name],
+            "max_abs_err": max_err[name], "ms": ms,
+            "plain_ms": plain_ms[name], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None})
+    return {"kernels": lines, "detail": detail}
+
+
+def phase7_env(dev, gpu, mesh):
+    """The environment-light path: the open env scene through K1 against the
+    plain version and the JAX golden, then timed renders of it and of the
+    level-6 mesh box with the sky.  Returns a detail dict."""
+    import torch
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
+    from bidirectional_pathtracing_tpu_torch.ops import (
+        intersect_clustered as icl)
+    from bidirectional_pathtracing_tpu_torch.ops.envlight import build_envmap
+    from bidirectional_pathtracing_tpu_torch.ops.intersect import PLAIN
+    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+        make_open_env_scene, synthetic_sky)
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+    scene = make_open_env_scene(device=dev)
+    cfg4 = RenderConfig(spp=4, max_ray_depth=DEPTH, width=120, height=90,
+                        integrator="bdpt", seed=0)
+    r_k = render(scene, cfg4)
+    r_p = render(scene, cfg4, isect=PLAIN)
+    check(np.isfinite(r_p.combined).all(), "non-finite pixels (plain env)")
+    rel_a, blk_a = render_vs("phase7a", r_p.combined, r_k.combined, 1e-3,
+                             0.01)
+    ref = np.load(GOLDEN_ENV)
+    rel_b, blk_b = render_vs(
+        "phase7b", ref["eye"] + ref["light"],
+        render(scene, RenderConfig(spp=8, max_ray_depth=DEPTH, width=48,
+                                   height=36, integrator="bdpt",
+                                   seed=0)).combined, 5e-3, 0.02)
+    detail = {"phase7a_rel": rel_a, "phase7a_block": blk_a,
+              "phase7b_rel": rel_b, "phase7b_block": blk_b}
+    sky_mesh = mesh._replace(envmap=build_envmap(synthetic_sky(), device=dev))
+    for label, sc, want in (("open_env", scene, "brute"),
+                            (f"meshbox_L{MESH_LEVEL}_sky", sky_mesh,
+                             "clustered")):
+        render(sc, RenderConfig(spp=1, max_ray_depth=DEPTH, width=W,
+                                height=H, integrator="bdpt", seed=1))
+        cfg8 = RenderConfig(spp=8, max_ray_depth=DEPTH, width=W, height=H,
+                            integrator="bdpt", seed=0, samples_per_chunk=8)
+        torch.cuda.synchronize()
+        ib.brute_hit.launches = icl.clustered_hit.launches = 0
+        res = render(sc, cfg8)
+        k1, k2 = ib.brute_hit.launches, icl.clustered_hit.launches
+        st = res.stats
+        check(np.isfinite(res.combined).all(), f"{label}: non-finite pixels")
+        check(res.combined.shape == (H, W, 3), f"{label}: shape")
+        check(res.light.sum() > 0, f"{label}: no env splats")
+        if want == "brute":
+            check(k1 > 0 and k2 == 0, f"{label}: K1 {k1}, K2 {k2} launches")
+        else:
+            check(k2 > 0 and k1 == 0, f"{label}: K1 {k1}, K2 {k2} launches")
+        print(f"[phase7c] {label} 480x360 d5 8spp: "
+              f"{st['camera_samples_per_s']:.1f} samples/s, "
+              f"{st['mrays_per_s']:.3f} Mrays/s measured ({st['rays']:.0f} "
+              f"rays, {st['wall_time_s']:.3f} s), brute_hit launches {k1}, "
+              f"clustered_hit launches {k2}, frame mean "
+              f"{res.combined.mean():.6f} ({gpu})")
+        detail[label] = {"samples_per_s": st["camera_samples_per_s"],
+                         "mrays_per_s": st["mrays_per_s"], "rays": st["rays"],
+                         "wall_s": st["wall_time_s"], "k1_launches": k1,
+                         "k2_launches": k2,
+                         "frame_mean": float(res.combined.mean())}
+    return detail
 
 
 def main() -> int:
@@ -425,9 +704,9 @@ def main() -> int:
 
     # --- phase 1 -----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.load_all(["brute_hit", "clustered_hit"])
-    print(f"[phase1] built both kernels in {time.perf_counter() - t0:.2f} s")
-    for name in ("brute_hit", "clustered_hit"):
+    _build.load_all(["brute_hit", "clustered_hit", "mt_bench"])
+    print(f"[phase1] built the kernels in {time.perf_counter() - t0:.2f} s")
+    for name in ("brute_hit", "clustered_hit", "mt_bench"):
         info = _build.BUILD_LOG[name]
         print(f"[phase1] {name}: cached={info['cached']} -> "
               f"{os.path.relpath(info['so'], REPO)}")
@@ -458,7 +737,9 @@ def main() -> int:
         p_ms = time_ms(lambda: ib.brute_hit_plain(g, o, d, lo, hi), 3)
         k_ms2 = time_ms(lambda: ib.brute_hit(g, o, d, lo, hi), 20)
         times[label] = {"rays": o.shape[0], "kernel_ms": min(k_ms, k_ms2),
-                        "plain_ms": p_ms}
+                        "plain_ms": p_ms,
+                        "bound": bound_ms(*brute_work(g, lo, hi,
+                                                      o.shape[0]))}
         print(f"[phase2] time {label}: kernel {k_ms:.4f} / {k_ms2:.4f} ms, "
               f"plain {p_ms:.4f} ms ({gpu})")
     del pops, o_s, d_s, hi_s
@@ -572,10 +853,16 @@ def main() -> int:
           f"{st8s['mrays_per_s']:.3f} Mrays/s measured "
           f"({st8s['wall_time_s']:.3f} s) ({gpu})")
 
+    k3 = phase6_k3(dev, gpu)
+    env = phase7_env(dev, gpu, mesh)
+
     # K1: ms / plain_ms of the 6,220,800-segment shadow batch.  K2: ms of
     # the 6,220,800-segment shadow batch as the default dispatch launches
     # it (unsorted); plain_ms of the 172,800-ray walk (the plain version is
-    # timed at the walk size only).
+    # timed at the walk size only).  K3: the vpu / mxu variants at 65,536
+    # rays and 64 visits.
+    k2_bound = bound_ms(k2_times["shadow_6220800"]["bound_bytes"],
+                        k2_times["shadow_6220800"]["bound_ops"])
     kernels = {"kernels": [{
         "name": "brute_hit",
         "route": "cuda",
@@ -585,6 +872,9 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": times["shadow_6220800"]["kernel_ms"],
         "plain_ms": times["shadow_6220800"]["plain_ms"],
+        "bound_ms": times["shadow_6220800"]["bound"][0],
+        "bound_by": times["shadow_6220800"]["bound"][1],
+        "library_ms": None,
     }, {
         "name": "clustered_hit",
         "route": "cuda",
@@ -599,7 +889,10 @@ def main() -> int:
         "plain_ms_rays": "walk_172800",
         "walk_172800_ms": min(k2_times["walk_172800"]["kernel_unsorted_ms"],
                               k2_times["walk_172800"]["kernel_unsorted_ms_2"]),
-    }]}
+        "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1],
+        "library_ms": None,
+    }] + k3["kernels"]}
     detail = {"gpu": gpu, "k1_times": times, "k2_times": k2_times,
               "checks": {"cornell": rep_box, "soup8192": rep_soup,
                          f"meshbox_L{MESH_LEVEL}": rep_mesh,
@@ -617,7 +910,8 @@ def main() -> int:
               "render_meshbox_sorted": {
                   "samples_per_s": st8s["camera_samples_per_s"],
                   "mrays_per_s": st8s["mrays_per_s"],
-                  "wall_s": st8s["wall_time_s"], "vs_default_rel": rel_5s}}
+                  "wall_s": st8s["wall_time_s"], "vs_default_rel": rel_5s},
+              "k3": k3["detail"], "env": env}
     print(f"[detail] {json.dumps(detail)}")
     print(json.dumps(kernels))
     print(gpu_line())

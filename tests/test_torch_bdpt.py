@@ -218,14 +218,12 @@ def test_sample_pass_matches_jax(spheres, min_lanes, mean_tol):
 
 
 def test_outside_the_slice_raises():
+    """The unidirectional PT is not ported (environment lights are, since
+    ROADMAP A7: tests/test_torch_env_bdpt.py)."""
     from bidirectional_pathtracing_tpu_torch.scene.procedural import (
         make_cornell_box)
     from bidirectional_pathtracing_tpu_torch.utils.render import render
-    scene = make_cornell_box()
-    cfg = TConfig(spp=1, max_ray_depth=2, width=4, height=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tb.sample_pass(scene._replace(envmap=object()), trng.key(0), 4, 3,
-                       torch.arange(12, dtype=torch.int32), cfg)
+    scene = make_cornell_box(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         render(scene, TConfig(integrator="pt", spp=1, width=4, height=3))
 

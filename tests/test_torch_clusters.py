@@ -71,7 +71,7 @@ def test_mesh_box_matches_jax_builders(level):
     assert a["tri_p"].dtype == np.float32 and a["tri_mat"].dtype == np.int32
     # the walls and light are the Cornell box's, the spheres its spheres
     box = ttypes.to_numpy(tproc.make_cornell_box(
-        sphere_materials=("mirror", "glass")))
+        sphere_materials=("mirror", "glass"), device="cpu"))
     np.testing.assert_array_equal(a["tri_p"][:12], box["geometry.tri_p"])
     np.testing.assert_array_equal(a["tri_n"][:12], box["geometry.tri_n"])
     for q in range(2):
@@ -87,7 +87,7 @@ def test_mesh_box_matches_jax_builders(level):
         w = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
         assert (np.sum(w * (p.mean(axis=1) - c), axis=-1) > 0).all()
     # the port's Scene equals the JAX builders' on the same arrays
-    mine = tproc.make_mesh_cornell_box(level)
+    mine = tproc.make_mesh_cornell_box(level, device="cpu")
     assert mine.geometry.num_spheres == 1
     assert not bool(mine.geometry.sph_valid.any())
     assert mine.clusters is None
@@ -97,7 +97,8 @@ def test_mesh_box_matches_jax_builders(level):
 
 def test_full_size_counts():
     assert tproc.icosphere(4)[1].shape == (5120, 3)
-    assert tproc.make_mesh_cornell_box(4).geometry.num_tris == 10_252
+    level4 = tproc.make_mesh_cornell_box(4, device="cpu")
+    assert level4.geometry.num_tris == 10_252
     # level 6, the slice's full size: 12 + 2 * 81,920 = 163,852 triangles
     assert tproc.icosphere(6)[1].shape == (81_920, 3)
 
@@ -176,14 +177,14 @@ def test_cluster_builder_covers_all_triangles(build):
 
 
 def test_attach_accelerator_rule():
-    small = tproc.make_cornell_box()
+    small = tproc.make_cornell_box(device="cpu")
     assert tbuild.attach_accelerator(small).clusters is None
     assert tbuild.attach_accelerator(small, "brute").clusters is None
     forced = tbuild.attach_accelerator(small, "bvh")
     assert forced.clusters is not None and forced.bvh is None
     with pytest.raises(ValueError):
         tbuild.attach_accelerator(small, "kd")
-    box = tproc.make_mesh_cornell_box(4)
+    box = tproc.make_mesh_cornell_box(4, device="cpu")
     assert ti.kernel_route(box) == "brute"
     got = tbuild.attach_accelerator(box)
     assert got.clusters is not None and got.bvh is None
@@ -202,7 +203,8 @@ def test_jax_attach_sees_the_same_rule(numpy_builder):
     which from_numpy refuses; its flat table converts (next test)."""
     for level in (2, 3):                       # 652 and 2,572 triangles
         js = jbuild.attach_accelerator(jax_mesh_box(level))
-        ts = tbuild.attach_accelerator(tproc.make_mesh_cornell_box(level))
+        ts = tbuild.attach_accelerator(
+            tproc.make_mesh_cornell_box(level, device="cpu"))
         assert (js.clusters is None) == (ts.clusters is None) == (level == 2)
     assert isinstance(js.clusters, jcl.PairedClusteredTris)
     with pytest.raises(ValueError, match="paired"):
@@ -232,6 +234,6 @@ def test_from_numpy_carries_flat_clusters(numpy_builder):
     for f in ref._fields:
         assert torch.equal(getattr(again.clusters, f), getattr(cl, f)), f
     # a scene without clusters round-trips without cluster leaves
-    plain = ttypes.to_numpy(tproc.make_cornell_box())
+    plain = ttypes.to_numpy(tproc.make_cornell_box(device="cpu"))
     assert not any(k.startswith("clusters.") for k in plain)
     assert ttypes.from_numpy(plain, "cpu").clusters is None

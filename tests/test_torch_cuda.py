@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain torch versions, on the card: the
-brute-force kernel (csrc/brute_hit.cu) and the clustered kernel
-(csrc/clustered_hit.cu).
+brute-force kernel (csrc/brute_hit.cu), the clustered kernel
+(csrc/clustered_hit.cu) and the K3 microbenchmark kernels
+(csrc/mt_bench.cu); and env-lit renders through K1 and K2 against the
+plain version.
 
 Jax-free, so it runs where the card is (that machine has no jax; the
 repo's conftest imports it, so pass --noconftest):
@@ -215,3 +217,54 @@ def test_render_through_clustered_kernel_matches_plain(cuda):
     assert icl.clustered_hit.launches - before == 2 * (4 + 4 + 1)
     np.testing.assert_allclose(a.combined.mean(), b.combined.mean(),
                                rtol=1e-3)
+
+
+@pytest.mark.parametrize("form", ["vpu", "linear"])
+def test_mt_bench_kernels_match_plain_bitwise(cuda, form):
+    """K3 at 4,096 rays (and a ragged 1,001), both `late` settings:
+    -fmad=false and the plain versions' summation order make t and the
+    index bitwise equal."""
+    from bidirectional_pathtracing_tpu_torch.ops import mt_bench as mb
+    fn, plain, k = ((mb.mt_vpu, mb.mt_vpu_plain, 1) if form == "vpu"
+                    else (mb.mt_linear, mb.mt_linear_plain, 2))
+    for r, iters in ((4096, 16), (1001, 9)):
+        arrays = [torch.from_numpy(a).to(cuda) for a in mb.make_inputs(r)]
+        rays, table = arrays[0], arrays[k]
+        for late in (False, True):
+            before = fn.launches
+            got = fn(rays, table, iters, late)
+            assert fn.launches == before + 1
+            ref = plain(rays, table, iters, late)
+            torch.cuda.synchronize()
+            assert got.shape == (2, r) and got.dtype == torch.float32
+            assert torch.equal(got, ref)
+            assert int((got[1] >= 0).sum()) > r // 10
+
+
+def _env_render_pair(scene, counter):
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+    cfg = RenderConfig(spp=2, max_ray_depth=4, width=64, height=48)
+    before = counter.launches
+    a = render(scene, cfg)
+    launched = counter.launches - before
+    b = render(scene, cfg, isect=PLAIN)
+    assert counter.launches - before == launched > 0
+    assert np.isfinite(a.combined).all() and a.light.sum() > 0
+    np.testing.assert_allclose(a.combined.mean(), b.combined.mean(),
+                               rtol=1e-3)
+
+
+def test_env_render_through_kernel_matches_plain(cuda):
+    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+        make_open_env_scene)
+    _env_render_pair(make_open_env_scene(device=cuda), ib.brute_hit)
+
+
+def test_env_mesh_render_through_clustered_kernel_matches_plain(cuda):
+    from bidirectional_pathtracing_tpu_torch.ops.envlight import build_envmap
+    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+        synthetic_sky)
+    box = attach_accelerator(make_mesh_cornell_box(4, device=cuda))
+    box = box._replace(envmap=build_envmap(synthetic_sky(), device=cuda))
+    _env_render_pair(box, icl.clustered_hit)

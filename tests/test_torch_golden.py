@@ -9,18 +9,21 @@ BDPT renders at 48x36, depth 5, 8 spp, seed 0, on the CPU:
     as level-6 icosphere meshes (163,852 triangles), built by the JAX
     package from the port's numpy arrays
     (scene/procedural.py mesh_cornell_box_arrays), with attach_accelerator
-    (on the CPU the JAX package walks its BVH).
+    (on the CPU the JAX package walks its BVH);
+  - envopen_bdpt_48x36_d5_8spp_seed0.npz: the open env scene
+    (examples/inverse_rendering.py `_open_scene`) lit only by the port's
+    synthetic sky (scene/procedural.py synthetic_sky).
 
-chip_smoke.py holds the port's renders on the card against both files.
-Only the Cornell box is rendered against its golden here: the port's CPU
-render of the 163,852-triangle box goes through the plain clustered hit,
-which tests every ray against every triangle, and takes far too long for
-the CPU tests.
+chip_smoke.py holds the port's renders on the card against all three
+files.  The Cornell box and the open env scene are rendered against their
+goldens here too: the port's CPU render of the 163,852-triangle box goes
+through the plain clustered hit, which tests every ray against every
+triangle, and takes far too long for the CPU tests.
 
 Write a golden that is missing (CPU; about a minute for the Cornell box,
 longer for the mesh box) with
 
-    JAX_PLATFORMS=cpu python tests/test_torch_golden.py [cornell|meshbox]
+    JAX_PLATFORMS=cpu python tests/test_torch_golden.py [cornell|meshbox|envopen]
 
 With no argument every missing golden is written; a named one is
 rewritten.
@@ -34,7 +37,8 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(REPO, "tests", "golden", "torch_port")
 GOLDENS = {"cornell": "cornell_mg_bdpt_48x36_d5_8spp_seed0.npz",
-           "meshbox": "meshbox_L6_bdpt_48x36_d5_8spp_seed0.npz"}
+           "meshbox": "meshbox_L6_bdpt_48x36_d5_8spp_seed0.npz",
+           "envopen": "envopen_bdpt_48x36_d5_8spp_seed0.npz"}
 GOLDEN = os.path.join(GOLDEN_DIR, GOLDENS["cornell"])
 SETTINGS = dict(spp=8, max_ray_depth=5, width=48, height=36, seed=0)
 SPHERES = ("mirror", "glass")
@@ -56,6 +60,13 @@ def _jax_scene(name):
         from bidirectional_pathtracing_tpu.scene.procedural import (
             make_cornell_box)
         return make_cornell_box(sphere_materials=SPHERES)
+    if name == "envopen":
+        from bidirectional_pathtracing_tpu.ops import envlight
+        from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+            synthetic_sky)
+        from examples.inverse_rendering import _open_scene
+        return _open_scene()._replace(
+            envmap=envlight.build_envmap(synthetic_sky()))
     import jax.numpy as jnp
     from bidirectional_pathtracing_tpu.scene import build, types
     from bidirectional_pathtracing_tpu_torch.scene.procedural import (
@@ -98,7 +109,7 @@ def test_port_cpu_render_matches_jax_golden():
         make_cornell_box)
     from bidirectional_pathtracing_tpu_torch.utils.render import render
     ref = np.load(GOLDEN)
-    scene = make_cornell_box(sphere_materials=SPHERES)
+    scene = make_cornell_box(sphere_materials=SPHERES, device="cpu")
     res = render(scene, RenderConfig(integrator="bdpt", **SETTINGS))
     ref_c = ref["eye"] + ref["light"]
     rel = abs(res.combined.mean() - ref_c.mean()) / ref_c.mean()
@@ -109,9 +120,30 @@ def test_port_cpu_render_matches_jax_golden():
         <= 1e-3 * float(ref["rays"]), (res.stats["rays"], ref["rays"])
 
 
+def test_port_cpu_env_render_matches_jax_golden():
+    """The open env scene on the CPU (families (a)-(d), env NEE shadow rays
+    and env splats through the plain intersection) against its golden,
+    with the bounds of the Cornell box above."""
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+        make_open_env_scene)
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+    ref = np.load(os.path.join(GOLDEN_DIR, GOLDENS["envopen"]))
+    res = render(make_open_env_scene(device="cpu"),
+                 RenderConfig(integrator="bdpt", **SETTINGS))
+    ref_c = ref["eye"] + ref["light"]
+    rel = abs(res.combined.mean() - ref_c.mean()) / ref_c.mean()
+    assert rel <= 5e-3, rel
+    err = block_err(ref_c, res.combined)
+    assert err.mean() <= 0.02, (err.mean(), err.max())
+    assert res.light.sum() > 0
+    assert abs(res.stats["rays"] - float(ref["rays"])) \
+        <= 1e-3 * float(ref["rays"]), (res.stats["rays"], ref["rays"])
+
+
 def test_goldens_are_present_and_sane():
-    """Both goldens load, with finite non-negative 36x48 images and a ray
-    count; the mesh box is no copy of the Cornell box."""
+    """Every golden loads, with finite non-negative 36x48 images and a ray
+    count; no two are copies of each other."""
     means = {}
     for name, f in GOLDENS.items():
         ref = np.load(os.path.join(GOLDEN_DIR, f))
@@ -120,7 +152,8 @@ def test_goldens_are_present_and_sane():
             assert np.isfinite(ref[k]).all() and (ref[k] >= 0).all()
         assert float(ref["rays"]) > 36 * 48 * 8
         means[name] = float((ref["eye"] + ref["light"]).mean())
-    assert means["meshbox"] > 0 and means["meshbox"] != means["cornell"]
+    assert min(means.values()) > 0
+    assert len(set(means.values())) == len(means)
 
 
 if __name__ == "__main__":

@@ -185,7 +185,8 @@ def test_sort_keys_match_jax(numpy_builder):
 def _big_scene():
     """The L=4 mesh box with clusters: 10,252 triangles, above _BRUTE_PREF,
     so the dispatch takes the clustered route on the CPU too."""
-    return tbuild.attach_accelerator(tproc.make_mesh_cornell_box(4))
+    return tbuild.attach_accelerator(
+        tproc.make_mesh_cornell_box(4, device="cpu"))
 
 
 def _segments(scene, n, seed):
@@ -208,7 +209,7 @@ def test_sorted_dispatch_matches(monkeypatch):
     key = ti._morton_key(scene.clusters, a, d)
     assert not torch.equal(torch.sort(key, stable=True).indices,
                            torch.arange(n))                 # really sorts
-    box = tproc.make_cornell_box()            # no clusters: no sort
+    box = tproc.make_cornell_box(device="cpu")   # no clusters: no sort
     for x, y in zip(ti.SORTED.closest(box, a, d, 1e-4, INF_D),
                     ti.scene_intersect(box, a, d, 1e-4, INF_D)):
         assert torch.equal(x, y)

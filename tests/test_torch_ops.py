@@ -99,7 +99,8 @@ def _bsdf_inputs(kind_id, seed):
 @pytest.mark.parametrize("kind", KINDS)
 def test_bsdf_matches_jax(kind):
     kid = KINDS.index(kind)
-    jm, tm = jtypes.make_materials(MATERIALS), ttypes.make_materials(MATERIALS)
+    jm, tm = jtypes.make_materials(MATERIALS), ttypes.make_materials(
+        MATERIALS, device="cpu")
     mid, wo, wi, u = _bsdf_inputs(kid, kid)
     (jmid, jwo, jwi, ju), (tmid, two, twi, tu) = _both(mid, wo, wi, u)
     _close(jb.eval_f(jm, jmid, jwo, jwi), tb.eval_f(tm, tmid, two, twi))
@@ -142,7 +143,8 @@ def _light_inputs(seed):
 
 @pytest.mark.parametrize("quirks", [True, False])
 def test_sample_L_matches_jax(quirks):
-    jlt, tlt = jtypes.make_lights(LIGHTS), ttypes.make_lights(LIGHTS)
+    jlt = jtypes.make_lights(LIGHTS)
+    tlt = ttypes.make_lights(LIGHTS, device="cpu")
     idx, p, u2, _ = _light_inputs(0)
     (ji, jp, ju), (ti, tp, tu) = _both(idx, p, u2)
     a = jl.sample_L(jlt, ji, jp, ju, reference_quirks=quirks)
@@ -152,7 +154,8 @@ def test_sample_L_matches_jax(quirks):
 
 
 def test_light_bdpt_interface_matches_jax():
-    jlt, tlt = jtypes.make_lights(LIGHTS), ttypes.make_lights(LIGHTS)
+    jlt = jtypes.make_lights(LIGHTS)
+    tlt = ttypes.make_lights(LIGHTS, device="cpu")
     assert tl.num_lights(tlt) == jl.num_lights(jlt) == len(LIGHTS)
     idx, p, u2, u2b = _light_inputs(1)
     (ji, jp, ju, jv), (ti, tp, tu, tv) = _both(idx, p, u2, u2b)

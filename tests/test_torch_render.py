@@ -56,7 +56,8 @@ def test_mesh_box_render_matches_jax(monkeypatch):
     monkeypatch.setattr(tic, "clustered_hit_plain", counted)
     monkeypatch.setattr(ti, "intersect", refuse)
     monkeypatch.setattr(ti, "occluded", refuse)
-    ts = tbuild.attach_accelerator(tproc.make_mesh_cornell_box(4))
+    ts = tbuild.attach_accelerator(
+        tproc.make_mesh_cornell_box(4, device="cpu"))
     assert ti.kernel_route(ts, cuda=False) == "clustered"
     got = trender.render(ts, TConfig(**SETTINGS))
     # 2 passes x (3 + 3 walks + 1 shadow batch)

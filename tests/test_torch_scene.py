@@ -43,7 +43,8 @@ def assert_leaves_equal(a: dict, b: dict):
 @pytest.mark.parametrize("spheres", SPHERE_SETS)
 def test_cornell_box_matches_jax_bitwise(spheres):
     ref = jax_scene_arrays(jproc.make_cornell_box(sphere_materials=spheres))
-    mine = ttypes.to_numpy(tproc.make_cornell_box(sphere_materials=spheres))
+    mine = ttypes.to_numpy(tproc.make_cornell_box(sphere_materials=spheres,
+                                                  device="cpu"))
     assert_leaves_equal(ref, mine)
 
 
@@ -67,7 +68,8 @@ def test_host_builders_match_jax():
     for kw in cases:
         g_j = jtypes.make_geometry(tri_p, tri_n, [0, 1, 2, 3, 4],
                                    to_device=False, **kw)
-        g_t = ttypes.make_geometry(tri_p, tri_n, [0, 1, 2, 3, 4], **kw)
+        g_t = ttypes.make_geometry(tri_p, tri_n, [0, 1, 2, 3, 4],
+                                   device="cpu", **kw)
         for f in g_j._fields:
             a, b = np.asarray(getattr(g_j, f)), getattr(g_t, f).numpy()
             assert a.dtype == b.dtype, f
@@ -79,7 +81,7 @@ def test_host_builders_match_jax():
     for jf, tf, rec in ((jtypes.make_materials, ttypes.make_materials, mats),
                         (jtypes.make_lights, ttypes.make_lights, lights),
                         (jtypes.make_lights, ttypes.make_lights, [])):
-        a, b = jf(rec), tf(rec)
+        a, b = jf(rec), tf(rec, device="cpu")
         for f in a._fields:
             x, y = np.asarray(getattr(a, f)), getattr(b, f).numpy()
             assert x.dtype == y.dtype and x.shape == y.shape, f
