@@ -22,6 +22,7 @@ ported.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
@@ -47,6 +48,25 @@ def make_sph_soa(geom: Geometry):
     return torch.cat([geom.sph_c, geom.sph_r[:, None],
                       geom.sph_valid[:, None].to(torch.float32)],
                      dim=1).to(torch.float32).contiguous()
+
+
+def _tables(geom: Geometry):
+    """(make_tri_soa, make_sph_soa) of geom, built once per geometry: kept
+    for the last geometry seen while its source tensors are alive and
+    unmodified (same objects, same in-place version counters)."""
+    src = (geom.tri_p, geom.tri_valid, geom.sph_c, geom.sph_r,
+           geom.sph_valid)
+    versions = tuple(x._version for x in src)
+    last = _tables.last
+    if (last is not None and last[1] == versions
+            and all(ref() is x for ref, x in zip(last[0], src))):
+        return last[2]
+    tables = (make_tri_soa(geom), make_sph_soa(geom))
+    _tables.last = ([weakref.ref(x) for x in src], versions, tables)
+    return tables
+
+
+_tables.last = None
 
 
 def brute_hit_plain(geom: Geometry, o, d, min_t, max_t):
@@ -84,8 +104,7 @@ def _launch(geom: Geometry, o, d, min_t, max_t):
     d = d.contiguous()
     lo = _window(min_t, r, o).contiguous()
     hi = _window(max_t, r, o).contiguous()
-    tris = make_tri_soa(geom)
-    sph = make_sph_soa(geom)
+    tris, sph = _tables(geom)
     for name, x in (("d", d), ("min_t", lo), ("max_t", hi), ("tris", tris),
                     ("spheres", sph)):
         if x.device != dev:

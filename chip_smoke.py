@@ -56,17 +56,26 @@ a zero exit):
           mesh box with the sky attached (env and area light, through K2),
           each with the K1 and K2 launch counts of that run alone.
 
+Hit kernels are timed alone: the windows are made contiguous [R] tensors
+and K1's tables are cached before the timed launches, so the events
+bracket the kernels and nothing else on the device.
+
 Every kernel's line carries a bound: the larger of the bytes its launch
 must move (each input read once, each output written once) over 3.35 TB/s
 and the operations this run's inputs need over 67 TFLOP/s FP32 (the H100
 SXM data sheet): 55 flops per ray-triangle test (the JAX microbenchmark's
-Möller–Trumbore count), 30 per ray-sphere test and 27 per slab test.  A
-ray moves o and d in and t and prim out, and min_t / max_t only where the
-launch gets them per ray (a scalar window is broadcast, not read).  K2's
-any-hit bound counts an occluded segment as one triangle test (the least
-that proves a blocker) and an unoccluded one in full: the slab test of
-every block, of every member cluster of each block it crosses, and every
-filled slot of each cluster it crosses.  library_ms is null: no single
+Möller–Trumbore count), 30 per ray-sphere test and 27 per slab test.  The
+67 TFLOP/s counts a fused multiply-add as two flops; the kernels are built
+with -fmad=false (bitwise equal to their plain versions), so they issue a
+separate instruction per multiply and per add and can reach at most about
+half of it.  A ray moves o and d in and t and prim out, and min_t / max_t
+only where the launch gets them per ray (a scalar window is broadcast, not
+read).  K1's bounds, walk and shadow, count every triangle and sphere per
+ray.  K2's any-hit bound counts an occluded segment as one triangle test
+(the least that proves a blocker) and an unoccluded one in full: the slab
+test of every block, of every member cluster of each block it crosses, and
+every filled slot of each cluster it crosses; its closest-hit (walk) bound
+counts the same up to each ray's hit.  library_ms is null: no single
 PyTorch call computes a closest hit.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
@@ -316,6 +325,14 @@ def compare_clustered(scene, pops, label):
     return report, max_err
 
 
+def per_ray(x, o):
+    """A window bound (scalar or [R]) as a contiguous [R] f32 tensor on o's
+    device, made before a timed launch so that the launch does not."""
+    import torch
+    return torch.as_tensor(x, dtype=torch.float32, device=o.device).expand(
+        o.shape[0]).contiguous()
+
+
 def time_ms(fn, reps):
     import torch
     fn()
@@ -359,8 +376,7 @@ def time_clustered(scene, gpu):
             ("shadow_6220800", (o_s, d_s, lo_s, hi_s), True)):
         r = o.shape[0]
         lo_in, hi_in = lo, hi
-        lo = torch.as_tensor(lo, device=o.device).expand(r).contiguous()
-        hi = torch.as_tensor(hi, device=o.device).expand(r).contiguous()
+        lo, hi = per_ray(lo, o), per_ray(hi, o)
 
         def key():
             if any_hit:
@@ -403,9 +419,21 @@ def time_clustered(scene, gpu):
         rec["sorted_equal_bitwise"] = True
         del t_s, s_s, got, ref
         if any_hit:
-            rec["bound_bytes"], rec["bound_ops"] = clustered_work(
-                cl, o, d, lo, hi, s_u >= 0, ray_bytes(r, lo_in, hi_in))
+            work = clustered_work(cl, o, d, lo, hi, s_u >= 0,
+                                  ray_bytes(r, lo_in, hi_in))
         else:
+            # a closest hit needs the boxes and clusters up to its hit
+            work = clustered_work(cl, o, d, lo, torch.where(s_u >= 0, t_u, hi),
+                                  torch.zeros_like(s_u, dtype=torch.bool),
+                                  ray_bytes(r, lo_in, hi_in))
+        rec["bound_bytes"], rec["bound_ops"], share = work
+        rec["warp_share"] = {
+            **share,
+            "lanes_busy_block": share["ray_block"]
+            / max(32 * share["warp_block"], 1),
+            "lanes_busy_cluster": share["ray_cluster"]
+            / max(32 * share["warp_cluster"], 1)}
+        if not any_hit:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -449,13 +477,20 @@ def brute_work(geom, lo, hi, r):
 
 
 def clustered_work(cl, o, d, lo, hi, occluded, n_ray_bytes):
-    """(bytes, operations) K2's any hit needs for segments [lo, hi], with
-    occluded the [R] any-hit result: an occluded segment needs one
-    Möller–Trumbore test (its blocker); an unoccluded live one a slab test
-    of every block, of every member cluster of each block it crosses in
-    [lo, hi], and Möller–Trumbore on every filled slot of each cluster it
-    crosses.  Counted on the card over 32 clusters and 2^19 rays at a
-    time."""
+    """(bytes, operations) K2 needs for rays over [lo, hi], with occluded
+    the [R] any-hit result: an occluded segment needs one Möller–Trumbore
+    test (its blocker); any other live ray a slab test of every block, of
+    every member cluster of each block it crosses in [lo, hi], and
+    Möller–Trumbore on every filled slot of each cluster it crosses.  For
+    the closest hit the caller passes occluded all False and hi = the hit's
+    t where there is one: the least a traversal could do.  Counted on the
+    card over 32 clusters and 2^19 rays at a time.
+
+    Also returns how those rays share their warps (consecutive 32): the
+    (ray, block) and (ray, cluster) crossings, and the same counted once
+    per warp that has a crossing ray.  A warp whose lanes each own a ray
+    and loop over the union of their boxes (K2's earlier one-thread-per-
+    ray form) keeps crossings / (32 x warp crossings) of its lanes busy."""
     import torch
     from bidirectional_pathtracing_tpu_torch.core.math import INF_D
     from bidirectional_pathtracing_tpu_torch.scene.clusters import BLOCK_SIZE
@@ -473,6 +508,9 @@ def clustered_work(cl, o, d, lo, hi, occluded, n_ray_bytes):
         filled * MT_FLOPS])
     ops = (float(live.sum()) * cl.n_blocks * SLAB_FLOPS
            + float(occluded.sum()) * MT_FLOPS)
+    is_block = torch.arange(boxes.shape[1], device=o.device) < cl.n_blocks
+    share = dict.fromkeys(("ray_block", "warp_block", "ray_cluster",
+                           "warp_cluster"), 0)
     for a0 in range(0, o.shape[0], 1 << 19):
         a1 = min(a0 + (1 << 19), o.shape[0])
         oo, ii = o[a0:a1], inv_d[a0:a1]
@@ -489,10 +527,16 @@ def clustered_work(cl, o, d, lo, hi, occluded, n_ray_bytes):
                        & (tmin <= hi[None, a0:a1]) & live[None, a0:a1])
             ops += float(crossed.sum(1).to(torch.float64)
                          @ per_box[c0:c0 + 32])
+            warps = torch.nn.functional.pad(
+                crossed, (0, -(a1 - a0) % 32)).view(bx.shape[1], -1, 32)
+            blk = is_block[c0:c0 + 32]
+            for kind, rows in (("block", blk), ("cluster", ~blk)):
+                share[f"ray_{kind}"] += int(crossed[rows].sum())
+                share[f"warp_{kind}"] += int(warps[rows].any(-1).sum())
     n_bytes = (n_ray_bytes + 4 * cl.tris.numel()
                + 4 * cl.pad2global.numel() + 4 * cl.cluster_b.numel()
                + 4 * cl.block_b.numel())
-    return n_bytes, ops
+    return n_bytes, ops, share
 
 
 def render_vs(label, ref_c, got, mean_tol, block_tol):
@@ -730,18 +774,20 @@ def main() -> int:
     o_w, d_w = o_w[:WALK_RAYS].contiguous(), d_w[:WALK_RAYS].contiguous()
     _, o_s, d_s, lo_s, hi_s = pops["shadow"]
     times = {}
-    for label, (o, d, lo, hi) in {
+    for label, (o, d, lo_in, hi_in) in {
             "walk_172800": (o_w, d_w, lo_w, hi_w),
             "shadow_6220800": (o_s, d_s, lo_s, hi_s)}.items():
+        # the kernel alone: windows as contiguous [R] tensors, the tables
+        # cached by time_ms's warm-up launch
+        lo, hi = per_ray(lo_in, o), per_ray(hi_in, o)
         k_ms = time_ms(lambda: ib.brute_hit(g, o, d, lo, hi), 20)
         p_ms = time_ms(lambda: ib.brute_hit_plain(g, o, d, lo, hi), 3)
         k_ms2 = time_ms(lambda: ib.brute_hit(g, o, d, lo, hi), 20)
+        b_ms, b_by = bound_ms(*brute_work(g, lo_in, hi_in, o.shape[0]))
         times[label] = {"rays": o.shape[0], "kernel_ms": min(k_ms, k_ms2),
-                        "plain_ms": p_ms,
-                        "bound": bound_ms(*brute_work(g, lo, hi,
-                                                      o.shape[0]))}
+                        "plain_ms": p_ms, "bound": (b_ms, b_by)}
         print(f"[phase2] time {label}: kernel {k_ms:.4f} / {k_ms2:.4f} ms, "
-              f"plain {p_ms:.4f} ms ({gpu})")
+              f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}) ({gpu})")
     del pops, o_s, d_s, hi_s
 
     # --- phase 3a: kernel vs plain render ----------------------------------
@@ -856,13 +902,16 @@ def main() -> int:
     k3 = phase6_k3(dev, gpu)
     env = phase7_env(dev, gpu, mesh)
 
-    # K1: ms / plain_ms of the 6,220,800-segment shadow batch.  K2: ms of
-    # the 6,220,800-segment shadow batch as the default dispatch launches
-    # it (unsorted); plain_ms of the 172,800-ray walk (the plain version is
-    # timed at the walk size only).  K3: the vpu / mxu variants at 65,536
-    # rays and 64 visits.
+    # K1: ms / plain_ms / bound of the 6,220,800-segment shadow batch, and
+    # the same of the 172,800-ray walk under walk_172800_*.  K2: ms and
+    # bound of the 6,220,800-segment shadow batch as the default dispatch
+    # launches it (unsorted), and of the walk under walk_172800_*; plain_ms
+    # of the 172,800-ray walk (the plain version is timed at the walk size
+    # only).  K3: the vpu / mxu variants at 65,536 rays and 64 visits.
     k2_bound = bound_ms(k2_times["shadow_6220800"]["bound_bytes"],
                         k2_times["shadow_6220800"]["bound_ops"])
+    k2_walk_bound = bound_ms(k2_times["walk_172800"]["bound_bytes"],
+                             k2_times["walk_172800"]["bound_ops"])
     kernels = {"kernels": [{
         "name": "brute_hit",
         "route": "cuda",
@@ -875,6 +924,10 @@ def main() -> int:
         "bound_ms": times["shadow_6220800"]["bound"][0],
         "bound_by": times["shadow_6220800"]["bound"][1],
         "library_ms": None,
+        "walk_172800_ms": times["walk_172800"]["kernel_ms"],
+        "walk_172800_plain_ms": times["walk_172800"]["plain_ms"],
+        "walk_172800_bound_ms": times["walk_172800"]["bound"][0],
+        "walk_172800_bound_by": times["walk_172800"]["bound"][1],
     }, {
         "name": "clustered_hit",
         "route": "cuda",
@@ -889,6 +942,8 @@ def main() -> int:
         "plain_ms_rays": "walk_172800",
         "walk_172800_ms": min(k2_times["walk_172800"]["kernel_unsorted_ms"],
                               k2_times["walk_172800"]["kernel_unsorted_ms_2"]),
+        "walk_172800_bound_ms": k2_walk_bound[0],
+        "walk_172800_bound_by": k2_walk_bound[1],
         "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1],
         "library_ms": None,

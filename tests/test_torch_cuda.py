@@ -100,43 +100,192 @@ def test_render_through_kernel_matches_plain(cuda):
 def _clustered_scene(name, device):
     if name == "meshbox":
         return attach_accelerator(make_mesh_cornell_box(3, device=device))
+    if name == "meshbox5":     # 40,972 triangles, several blocks
+        return attach_accelerator(make_mesh_cornell_box(5, device=device))
     return attach_accelerator(_soup(device, n_tris=3000, seed=2))
+
+
+def _random_rays(n, device, seed, dead=0.0):
+    rng = np.random.default_rng(seed)
+    o = torch.from_numpy(rng.uniform([-1, 0, -1], [1, 1.5, 1], (n, 3))
+                         .astype(np.float32)).to(device)
+    d = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(device)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    hi = rng.uniform(0.1, 3.0, n).astype(np.float32)
+    hi[rng.uniform(size=n) < dead] = -1.0
+    return o, d, torch.full((n,), EPS_F, device=device), \
+        torch.from_numpy(hi).to(device)
+
+
+def _hold(cl, o, d, lo, hi):
+    """K2 against the plain version: closest-hit slot equal on all but
+    0.01 % of rays (a graze of a zero-thickness cluster box may cull a
+    hit), t rtol 1e-6 where they agree; any hit equal to the plain closest
+    hit's slot >= 0 on as many, with t = -1e30 where it hit and 1e30
+    elsewhere.  Returns the plain slots."""
+    n = o.shape[0]
+    t, slot = icl.clustered_hit(cl, o, d, lo, hi)
+    at, aslot = icl.clustered_hit(cl, o, d, lo, hi, any_hit=True)
+    assert slot.dtype == torch.int32 and t.dtype == torch.float32
+    rt, rs = icl.clustered_hit_plain(cl, o, d, lo, hi)
+    torch.cuda.synchronize()
+    bad = slot != rs
+    assert int(bad.sum()) <= n // 10_000, int(bad.sum())
+    torch.testing.assert_close(t[~bad], rt[~bad], rtol=1e-6, atol=0.0)
+    assert bool((t[slot < 0] == INF_D).all())
+    assert int(((aslot >= 0) != (rs >= 0)).sum()) <= n // 10_000
+    assert not bool((aslot[hi < lo] >= 0).any())
+    assert torch.equal(at, torch.where(aslot >= 0, -INF_D, INF_D))
+    return rs
 
 
 @pytest.mark.parametrize("scene", ["meshbox", "soup"])
 def test_clustered_kernel_matches_plain(cuda, scene):
-    """K2 against clustered_hit_plain: valid/slot equal on all but 0.01 % of
-    rays (a graze of a zero-thickness cluster box may cull a hit), t rtol
-    1e-6 where they agree; any hit against the plain closest hit's
-    slot >= 0, dead windows (max_t = -1) included."""
-    sc = _clustered_scene(scene, cuda)
-    cl = sc.clusters
-    rng = np.random.default_rng(3)
-    n = 20_001                       # a ragged last block
-    o = torch.from_numpy(rng.uniform([-1, 0, -1], [1, 1.5, 1], (n, 3))
-                         .astype(np.float32)).to(cuda)
-    d = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(cuda)
-    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
-    hi = rng.uniform(0.1, 3.0, n).astype(np.float32)
-    hi[rng.uniform(size=n) < 0.2] = -1.0
-    hi = torch.from_numpy(hi).to(cuda)
-    lo = torch.full((n,), EPS_F, device=cuda)
+    """K2 against clustered_hit_plain (_hold), open windows and segments
+    with dead windows (max_t = -1), 20,001 rays (a ragged last block)."""
+    cl = _clustered_scene(scene, cuda).clusters
+    n = 20_001
+    o, d, lo, hi = _random_rays(n, cuda, seed=3, dead=0.2)
     for mx in (torch.full((n,), INF_D, device=cuda), hi):
         before = icl.clustered_hit.launches
-        t, slot = icl.clustered_hit(cl, o, d, lo, mx)
-        _, any_slot = icl.clustered_hit(cl, o, d, lo, mx, any_hit=True)
+        rs = _hold(cl, o, d, lo, mx)
         assert icl.clustered_hit.launches == before + 2
-        assert slot.dtype == torch.int32 and t.dtype == torch.float32
-        rt, rs = icl.clustered_hit_plain(cl, o, d, lo, mx)
-        torch.cuda.synchronize()
-        bad = (slot != rs)
-        assert int(bad.sum()) <= n // 10_000, int(bad.sum())
-        ok = ~bad & (rs >= 0)
-        assert int(ok.sum()) > n // 10
-        torch.testing.assert_close(t[ok], rt[ok], rtol=1e-6, atol=0.0)
-        assert bool((t[slot < 0] == INF_D).all())
-        assert int(((any_slot >= 0) != (rs >= 0)).sum()) <= n // 10_000
-        assert not bool((any_slot[mx < lo] >= 0).any())
+        assert int((rs >= 0).sum()) > n // 10
+
+
+TIE_COPIES = {   # (cluster, lane) of each copy of the one hit triangle
+    "cluster": [(0, 7), (0, 3)],       # twice in one cluster
+    "block": [(2, 0), (1, 9)],         # in two clusters of one block
+    "blocks": [(129, 0), (5, 50)],     # in two blocks
+}
+
+
+def tie_tables(case):
+    """Flat cluster tables (numpy block_b, cluster_b, tris [C, 9, 128],
+    pad2global) over 130 clusters (two blocks) in which one triangle, the
+    only one the rays can hit, is stored at each (cluster, lane) of
+    TIE_COPIES[case]; every other filled slot holds a small triangle far to
+    the side.  Every copy gives the same t, so the lowest padded slot must
+    win.  Returns (tables, (o, d, min_t, max_t) numpy, expected slot [R]):
+    the rays point at the triangle from z = -1, the last two away from it
+    (expected -1)."""
+    from bidirectional_pathtracing_tpu_torch.scene.clusters import (
+        BLOCK_SIZE, CLUSTER_SIZE)
+    n_c = 130
+    tri = np.array([[-1, -1, 0], [1, -1, 0], [0, 1, 0]], np.float32)
+    copies = TIE_COPIES[case]
+    tris = np.zeros((n_c, 9, CLUSTER_SIZE), np.float32)
+    p2g = np.full(n_c * CLUSTER_SIZE, -1, np.int32)
+    cb = np.zeros((8, 2 * BLOCK_SIZE), np.float32)
+    cb[0:3], cb[3:6] = np.inf, -np.inf
+    for c in range(n_c):
+        n = max([lane + 1 for cc, lane in copies if cc == c], default=1)
+        for lane in range(n):
+            if (c, lane) in copies:
+                p = tri
+            else:
+                base = np.array([3 + 1e-3 * lane, 3 + 1e-3 * c, 0.5],
+                                np.float32)
+                p = base + np.array([[0, 0, 0], [0.01, 0, 0], [0, 0.01, 0]],
+                                    np.float32)
+            tris[c, :, lane] = p.reshape(9)
+            p2g[c * CLUSTER_SIZE + lane] = c * CLUSTER_SIZE + lane
+        v = tris[c, :, :n].reshape(3, 3, n)
+        cb[0:3, c] = v.min(axis=(0, 2))
+        cb[3:6, c] = v.max(axis=(0, 2))
+    bb = np.zeros((8, 8), np.float32)
+    bb[:, 0:3], bb[:, 3:6] = np.inf, -np.inf
+    for b in range(2):
+        s = slice(b * BLOCK_SIZE, min((b + 1) * BLOCK_SIZE, n_c))
+        bb[b, 0:3] = cb[0:3, s].min(axis=1)
+        bb[b, 3:6] = cb[3:6, s].max(axis=1)
+    n_rays = 64
+    rng = np.random.default_rng(0)
+    o = np.concatenate([rng.uniform(-0.2, 0.2, (n_rays, 2)),
+                        np.full((n_rays, 1), -1.0)], axis=1)
+    d = np.concatenate([rng.uniform(-0.05, 0.05, (n_rays, 2)),
+                        np.ones((n_rays, 1))], axis=1)
+    d[-2:, 2] = -1.0                              # away from the triangle
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    want = np.full(n_rays, min(c * CLUSTER_SIZE + lane for c, lane in copies),
+                   np.int32)
+    want[-2:] = -1
+    rays = (o.astype(np.float32), d.astype(np.float32),
+            np.full(n_rays, EPS_F, np.float32),
+            np.full(n_rays, INF_D, np.float32))
+    return (bb, cb, tris, p2g), rays, want
+
+
+def _tables_on(tables, device):
+    from bidirectional_pathtracing_tpu_torch.scene.clusters import (
+        ClusteredTris)
+    return ClusteredTris(*(torch.from_numpy(x).to(device) for x in tables))
+
+
+@pytest.mark.parametrize("case", sorted(TIE_COPIES))
+def test_clustered_kernel_tie_rule(cuda, case):
+    """K2 on tables that store the hit triangle twice: the lowest padded
+    slot wins, as in the plain version, closest hit and any hit."""
+    tables, rays, want = tie_tables(case)
+    cl = _tables_on(tables, cuda)
+    o, d, lo, hi = (torch.from_numpy(x).to(cuda) for x in rays)
+    t, slot = icl.clustered_hit(cl, o, d, lo, hi)
+    rt, rs = icl.clustered_hit_plain(cl, o, d, lo, hi)
+    _, any_slot = icl.clustered_hit(cl, o, d, lo, hi, any_hit=True)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(slot.cpu().numpy(), want)
+    assert torch.equal(slot, rs) and torch.equal(t, rt)
+    assert torch.equal(any_slot >= 0, rs >= 0)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 129, 20_001])
+def test_clustered_kernel_ragged_warps(cuda, n):
+    """K2 at ray counts that end inside a warp or a CUDA block: lanes past
+    the end take part in the warp's votes and write nothing."""
+    cl = _clustered_scene("meshbox", cuda).clusters
+    o, d, lo, hi = _random_rays(n, cuda, seed=n, dead=0.1)
+    for mx in (torch.full((n,), INF_D, device=cuda), hi):
+        _hold(cl, o, d, lo, mx)
+
+
+def test_clustered_kernel_dead_lanes(cuda):
+    """A warp whose rays are all dead (max_t < min_t), a warp with one
+    live lane, a warp of live rays: every ray as in the plain version, the
+    dead ones missing."""
+    cl = _clustered_scene("meshbox5", cuda).clusters
+    o, d, lo, _ = _random_rays(96, cuda, seed=7)
+    hi = torch.full((96,), INF_D, device=cuda)
+    hi[:64] = -1.0
+    hi[40] = INF_D
+    rs = _hold(cl, o, d, lo, hi)
+    assert bool((rs[hi < lo] < 0).all())
+    assert int(rs[40]) >= 0 and int((rs[64:] >= 0).sum()) > 16
+
+
+def test_clustered_kernel_any_hit_mixed(cuda):
+    """Any hit over warps in which segments occluded early alternate with
+    unoccluded ones that need the whole traversal: a ray that stops must
+    not stop its neighbours, and one that goes on must not lose its
+    result."""
+    cl = _clustered_scene("meshbox5", cuda).clusters
+    n = 40_000
+    rng = np.random.default_rng(8)
+    a = torch.from_numpy(rng.uniform([-1, 0, -1], [1, 1.5, 1], (n, 3))
+                         .astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.uniform([-1, 0, -1], [1, 1.5, 1], (n, 3))
+                         .astype(np.float32)).to(cuda)
+    dist = torch.linalg.vector_norm(b - a, dim=-1)
+    d = (b - a) / dist[:, None]
+    lo = torch.full((n,), EPS_F, device=cuda)
+    hi = dist * (1.0 - 2e-4) - EPS_F
+    _, rs = icl.clustered_hit_plain(cl, a, d, lo, hi)
+    occ = torch.nonzero(rs >= 0).reshape(-1)
+    free = torch.nonzero(rs < 0).reshape(-1)
+    m = min(len(occ), len(free)) // 32 * 32
+    assert m >= 1024
+    order = torch.stack([occ[:m], free[:m]], dim=1).reshape(-1)
+    rs = _hold(cl, a[order], d[order], lo[order], hi[order])
+    assert bool((rs[0::2] >= 0).all()) and not bool((rs[1::2] >= 0).any())
 
 
 def test_clustered_kernel_edge_cases(cuda):

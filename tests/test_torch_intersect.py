@@ -220,6 +220,24 @@ def test_tables_for_the_kernel():
     assert not tib.make_tri_soa(g2).any()
 
 
+def test_kernel_tables_built_once_per_geometry():
+    """The kernel wrapper's tables are built once per geometry and rebuilt
+    when the geometry changes: another geometry, or an in-place edit of
+    one of its tensors."""
+    g = port_scene(jproc.make_cornell_box()).geometry
+    tri, sph = tib._tables(g)
+    assert torch.equal(tri, tib.make_tri_soa(g))
+    assert torch.equal(sph, tib.make_sph_soa(g))
+    again = tib._tables(g)
+    assert again[0] is tri and again[1] is sph
+    g2 = g._replace(tri_valid=torch.zeros_like(g.tri_valid))
+    assert not tib._tables(g2)[0].any()
+    g.tri_p[0, 0, 0] += 1.0                # in place: a new version
+    tri3, _ = tib._tables(g)
+    assert tri3 is not tri and torch.equal(tri3, tib.make_tri_soa(g))
+    assert tib._tables(g)[0] is tri3
+
+
 class _FakeGeom:
     def __init__(self, n):
         self.num_tris = n

@@ -35,6 +35,7 @@ from bidirectional_pathtracing_tpu_torch.scene import types as ttypes
 from tests.test_clustered import _random_mesh, _random_rays
 from tests.test_torch_clusters import (  # noqa: F401 (numpy_builder)
     jax_cluster_arrays, jax_mesh_box, numpy_builder, port_geometry)
+from tests.test_torch_cuda import TIE_COPIES, _tables_on, tie_tables
 from tests.test_torch_intersect import (
     _check_hits, _edge_band, _populations, _soup_scene)
 from tests.test_torch_scene import jax_scene_arrays
@@ -125,6 +126,33 @@ def test_plain_matches_jax_kernel(numpy_builder, scene):
     sph = tic.occluded_spheres(g, *T, torch.zeros(len(o), dtype=torch.bool))
     np.testing.assert_array_equal((aslot.numpy() >= 0) | sph.numpy(), occ)
     assert not occ[hi < lo].any()
+
+
+@pytest.mark.parametrize("case", sorted(TIE_COPIES))
+def test_tie_rule_matches_jax(case):
+    """Exact ties: the hit triangle stored twice in one cluster, in two
+    clusters of one block, or in two blocks (tests/test_torch_cuda.py
+    tie_tables).  The plain version and the JAX kernel in interpret mode
+    both return the lowest padded slot, on every ray."""
+    tables, rays, want = tie_tables(case)
+    bb, cb, tris, p2g = tables
+    tris16 = np.zeros((tris.shape[0], 16, tris.shape[2]), np.float32)
+    tris16[:, :9] = tris
+    jc = jcl.ClusteredTris(block_b=jnp.asarray(bb), cluster_b=jnp.asarray(cb),
+                           tris=jnp.asarray(tris16),
+                           pad2global=jnp.asarray(p2g))
+    assert jc.n_blocks == 2
+    jt, jslot = jic.tri_closest_hit_clustered(
+        jc, *(jnp.asarray(x) for x in rays), interpret=True)
+    jt, jslot = np.array(jt), np.asarray(jslot).astype(np.int32)
+    t, slot = tic.clustered_hit_plain(_tables_on(tables, "cpu"),
+                                      *(torch.from_numpy(x) for x in rays))
+    t, slot = t.numpy(), slot.numpy()
+    np.testing.assert_array_equal(slot, want)
+    np.testing.assert_array_equal(jslot, want)
+    hit = want >= 0
+    np.testing.assert_allclose(t[hit], jt[hit], rtol=1e-6, atol=1e-6)
+    assert (t[~hit] == INF_D).all()
 
 
 def test_plain_edge_cases():
