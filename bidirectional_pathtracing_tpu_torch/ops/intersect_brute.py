@@ -11,7 +11,10 @@ miss, num_tris + q for sphere q).  brute_hit is the wrapper:
   - for CUDA tensors it launches the kernel or raises.  There is no
     fallback.
 
-brute_hit.launches counts the kernel launches of this process.
+brute_hit.launches counts the kernel launches of this process.  The
+kernel's [T, 9] / [Q, 5] tables are built once per geometry, with a host
+copy: tables within param_caps() go to the kernel by value, as a kernel
+parameter; larger ones are read from device memory.
 
 intersect_brute resolves the winner (barycentric normal and material for a
 triangle, analytic normal and material for a sphere) with plain gathers;
@@ -22,12 +25,12 @@ ported.
 from __future__ import annotations
 
 import ctypes
-import weakref
 
 import torch
 
 from bidirectional_pathtracing_tpu_torch.core.math import INF_D
 from bidirectional_pathtracing_tpu_torch.ops import _build
+from bidirectional_pathtracing_tpu_torch.ops._memo import last_of
 from bidirectional_pathtracing_tpu_torch.ops.intersect import (
     Hit, _cross3, _dot3, _unit, _window, intersect)
 from bidirectional_pathtracing_tpu_torch.scene.types import Geometry
@@ -50,23 +53,17 @@ def make_sph_soa(geom: Geometry):
                      dim=1).to(torch.float32).contiguous()
 
 
-def _tables(geom: Geometry):
-    """(make_tri_soa, make_sph_soa) of geom, built once per geometry: kept
-    for the last geometry seen while its source tensors are alive and
-    unmodified (same objects, same in-place version counters)."""
-    src = (geom.tri_p, geom.tri_valid, geom.sph_c, geom.sph_r,
-           geom.sph_valid)
-    versions = tuple(x._version for x in src)
-    last = _tables.last
-    if (last is not None and last[1] == versions
-            and all(ref() is x for ref, x in zip(last[0], src))):
-        return last[2]
-    tables = (make_tri_soa(geom), make_sph_soa(geom))
-    _tables.last = ([weakref.ref(x) for x in src], versions, tables)
-    return tables
+def _build_tables(geom: Geometry):
+    tri, sph = make_tri_soa(geom), make_sph_soa(geom)
+    host = torch.cat([tri.reshape(-1), sph.reshape(-1)]).cpu()
+    return tri, sph, host
 
 
-_tables.last = None
+# (make_tri_soa, make_sph_soa, their host copy packed [T*9 + Q*5] f32) of a
+# geometry, built once per geometry (ops/_memo.py): one device-to-host copy
+# per geometry, not one per launch
+_tables = last_of(lambda g: (g.tri_p, g.tri_valid, g.sph_c, g.sph_r,
+                             g.sph_valid), _build_tables)
 
 
 def brute_hit_plain(geom: Geometry, o, d, min_t, max_t):
@@ -81,13 +78,28 @@ def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
 
 def _kernel():
     """The C entry point, built on first use, with its ctypes signature:
-    (o, d, min_t, max_t, tris, n_tris, sph, n_sph, prim_base, t_out,
-    prim_out, n_rays, stream) -> cudaError_t."""
+    (o, d, min_t, max_t, tris, n_tris, sph, n_sph, prim_base, host_tables,
+    t_out, prim_out, n_rays, stream) -> cudaError_t."""
     fn = _build.load(_KERNEL).brute_hit
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, i32, vp, i32, i32, vp, vp, i32, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, i32, vp, i32, i32, vp, vp, vp, i32,
+                   vp]
     fn.restype = ctypes.c_int
     return fn
+
+
+def param_caps() -> tuple[int, int]:
+    """(triangles, spheres): the largest tables the kernel takes as a
+    parameter (brute_hit_param_caps; set by the CUDA toolkit's version)."""
+    if param_caps.caps is None:
+        lib = _build.load(_KERNEL)
+        n_t, n_q = ctypes.c_int(), ctypes.c_int()
+        lib.brute_hit_param_caps(ctypes.byref(n_t), ctypes.byref(n_q))
+        param_caps.caps = (n_t.value, n_q.value)
+    return param_caps.caps
+
+
+param_caps.caps = None
 
 
 def _launch(geom: Geometry, o, d, min_t, max_t):
@@ -104,11 +116,13 @@ def _launch(geom: Geometry, o, d, min_t, max_t):
     d = d.contiguous()
     lo = _window(min_t, r, o).contiguous()
     hi = _window(max_t, r, o).contiguous()
-    tris, sph = _tables(geom)
+    tris, sph, host = _tables(geom)
     for name, x in (("d", d), ("min_t", lo), ("max_t", hi), ("tris", tris),
                     ("spheres", sph)):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, rays on {dev}")
+    cap_t, cap_q = param_caps()
+    by_value = tris.shape[0] <= cap_t and sph.shape[0] <= cap_q
     t = torch.empty((r,), dtype=torch.float32, device=dev)
     prim = torch.empty((r,), dtype=torch.int32, device=dev)
     fn = _kernel()
@@ -116,7 +130,8 @@ def _launch(geom: Geometry, o, d, min_t, max_t):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(_ptr(o), _ptr(d), _ptr(lo), _ptr(hi), _ptr(tris),
                  tris.shape[0], _ptr(sph), sph.shape[0], geom.num_tris,
-                 _ptr(t), _ptr(prim), r, ctypes.c_void_p(stream))
+                 _ptr(host) if by_value else None, _ptr(t), _ptr(prim), r,
+                 ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"brute_hit kernel launch failed: CUDA error {err}")
     brute_hit.launches += 1

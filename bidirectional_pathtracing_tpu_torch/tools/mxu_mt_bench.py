@@ -9,13 +9,19 @@ Variants (ops/mt_bench.py; csrc/mt_bench.cu):
 
   vpu        Möller–Trumbore on the vertex table, per-element t limit
   vpu-late   the limit applied to the reduced cluster minimum instead
-  mxu        the numerators as the linear form amat @ z (FP32, in-kernel)
+  mxu        the numerators as the linear form amat @ z (tensor cores,
+             TF32, three products)
   mxu-late   the linear form with the late limit
 
-Each is run once as a warm-up, then timed with CUDA events over REPS = 10
-launches.  Printed per variant: ms per launch, µs per cluster visit,
-GFLOP/s MT-equivalent (55 flops per ray-triangle test, the JAX tool's
-count), hits, and the share of rays whose winner equals vpu's.
+Each is run once as a warm-up, then timed over REPS = 10 launches two ways
+(utils/timing.py): device_ms, the kernel's own duration on the device
+(torch.profiler's kernel records, or a CUDA graph where the profiler has
+none), and call_ms, CUDA events around the Python calls, host work
+included.  Printed per variant: both, µs per cluster visit and GFLOP/s
+MT-equivalent (55 flops per ray-triangle test, the JAX tool's count) from
+device_ms, hits, and the share of rays whose winner equals vpu's.  With
+--device cpu there is no device time: call_ms is the host clock and
+device_ms None.
 
 Without R, it runs R = 65,536 (iters 64 by default: 5.4e8 tests) and then
 R = 256, the TPU tool's tile size, which is one block of 256 threads on one
@@ -33,32 +39,30 @@ import time
 import torch
 
 from bidirectional_pathtracing_tpu_torch.ops import mt_bench
+from bidirectional_pathtracing_tpu_torch.utils import timing
 
 VARIANTS = (("vpu", False, False), ("vpu-late", False, True),
             ("mxu", True, False), ("mxu-late", True, True))
 REPS = 10      # timed launches per variant
 
 
-def _time_ms(call, dev: torch.device) -> float:
+def _times(call, kernel: str, dev: torch.device):
+    """(call_ms, device_ms, device source) over REPS launches."""
     if dev.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(REPS):
-            call()
-        end.record()
-        torch.cuda.synchronize(dev)
-        return start.elapsed_time(end) / REPS
+        return (timing.call_ms(call, REPS),
+                *timing.device_ms(call, kernel, REPS))
     t0 = time.perf_counter()
     for _ in range(REPS):
         call()
-    return (time.perf_counter() - t0) * 1e3 / REPS
+    return (time.perf_counter() - t0) * 1e3 / REPS, None, None
 
 
 def run(iters: int = 64, r: int = 65536, device="cuda", log=print) -> dict:
     """Time the four variants at `r` rays and `iters` visits on `device`.
-    Returns {variant: {"ms", "us_per_visit", "gflops", "hits",
-    "agree_with_vpu", "out"}}, out being the [2, r] result."""
+    Returns {variant: {"call_ms", "device_ms", "device_source",
+    "us_per_visit", "gflops", "hits", "agree_with_vpu", "out"}}, out being
+    the [2, r] result (us_per_visit and gflops from device_ms, or from
+    call_ms without a card)."""
     dev = torch.device(device)
     rays, tris, amat = (torch.from_numpy(a).to(dev)
                         for a in mt_bench.make_inputs(r))
@@ -70,18 +74,22 @@ def run(iters: int = 64, r: int = 65536, device="cuda", log=print) -> dict:
         def call():
             return fn(rays, table, iters, late)
         out = call()                       # warm-up (and the first build)
-        ms = _time_ms(call, dev)
+        call_ms, device_ms, source = _times(call, fn.__name__, dev)
+        ms = device_ms if device_ms is not None else call_ms
         us = ms * 1e3 / max(iters, 1)
         gflops = mt_bench.FLOPS_PER_TEST * mt_bench.TC * r / us / 1e3
         ref = results["vpu"]["out"] if results else out
-        rec = {"ms": ms, "us_per_visit": us, "gflops": gflops,
+        rec = {"call_ms": call_ms, "device_ms": device_ms,
+               "device_source": source, "us_per_visit": us, "gflops": gflops,
                "hits": int((out[1] >= 0).sum()),
                "agree_with_vpu": float((out[1] == ref[1]).float().mean()),
                "out": out}
         results[name] = rec
-        log(f"{name:9s} R={r}: {ms:9.4f} ms / {iters} clusters -> "
-            f"{us:8.4f} us/cluster ({gflops:9.1f} Gflop/s MT-equiv)  "
-            f"hits={rec['hits']}  agree={rec['agree_with_vpu'] * 100:6.2f}%")
+        dev_txt = f"{device_ms:9.4f}" if device_ms is not None else "     none"
+        log(f"{name:9s} R={r}: device {dev_txt} ms, call {call_ms:9.4f} ms "
+            f"/ {iters} clusters -> {us:8.4f} us/cluster ({gflops:9.1f} "
+            f"Gflop/s MT-equiv)  hits={rec['hits']}  "
+            f"agree={rec['agree_with_vpu'] * 100:6.2f}%")
     return results
 
 

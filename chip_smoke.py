@@ -12,11 +12,13 @@ a zero exit):
      csrc/mt_bench.cu) from the sources in this checkout, one nvcc each,
      started together, and print what ptxas reports for each.
   2. the brute-force kernel K1 against its plain torch version on the card,
-     closest hit and any hit, on the Cornell box (12 triangles, 2 spheres)
-     and an 8,192-triangle soup with the same spheres, over camera, bounce
-     and segment-clipped shadow rays; then both timed at the main path's
-     launch sizes (172,800 walk rays, 6,220,800 shadow segments at 480x360
-     d5).
+     closest hit (t and prim bitwise equal on every ray) and any hit, on
+     the Cornell box (12 triangles, 2 spheres) and an 8,192-triangle soup
+     with the same spheres, over camera, bounce and segment-clipped shadow
+     rays; then both timed at the main path's launch sizes (172,800 walk
+     rays, 6,220,800 shadow segments at 480x360 d5): K1's device_ms and
+     call_ms, the plain version's call time, and the timed launches'
+     outputs held bitwise against the plain version's.
   3. the small-scene path: render() of the Cornell box with mirror and
      glass spheres at 480x360, depth 5, on the card:
        a. 4 spp through K1 against 4 spp through the plain version;
@@ -29,7 +31,8 @@ a zero exit):
      a 65,536-triangle soup.  K2 against its plain torch version, closest
      hit and any hit, over 65,536 camera, bounce and shadow rays of each;
      then K2 timed at 172,800 walk rays and 6,220,800 shadow segments,
-     unsorted and sorted, with the sort key's own time, and the plain
+     unsorted (device_ms and call_ms) and sorted, with the sort key's own
+     time, and the plain
      version at 172,800 rays; K2's outputs there held against the plain
      version (walk) and sorted against unsorted (both, bitwise).
   5. the large-scene path: render() of the mesh box through K2:
@@ -41,12 +44,15 @@ a zero exit):
           through the sorted dispatch (SORTED), timed and held against it.
   6. K3, the per-cluster Möller–Trumbore microbenchmark (csrc/mt_bench.cu):
      both kernels, both `late` settings, against their plain versions at
-     4,096 rays and 16 visits, bitwise on t and index; the vpu and linear
-     forms' agreement; then its entry point (tools/mxu_mt_bench.py run) at
-     65,536 and 256 rays, 64 visits, with K3's launch counts taken over that
-     run alone, and every variant's output there held bitwise against its
-     plain version on the same inputs (the plain versions timed at 65,536
-     rays).
+     4,096 rays and 16 visits, mt_vpu bitwise on t and index, mt_linear
+     (tensor cores) by ops/mt_bench.py linear_gate; the vpu and linear
+     forms' agreement; how far two FP32 evaluations of the linear form,
+     and a float64 one, lie apart there (ops/mt_bench.py rtol_witness);
+     then its entry point (tools/mxu_mt_bench.py run) at
+     65,536 and 256 rays, 64 visits, each variant's device_ms and call_ms,
+     with K3's launch counts taken over that run alone, and every variant's
+     output there held against its plain version on the same inputs by the
+     same gates (the plain versions timed at 65,536 rays).
   7. the environment-light path: render() of the open env scene (2
      triangles, 2 spheres, the synthetic sky, no lights):
        a. 120x90 d5 4 spp through K1 against the same render through the
@@ -56,15 +62,20 @@ a zero exit):
           mesh box with the sky attached (env and area light, through K2),
           each with the K1 and K2 launch counts of that run alone.
 
-Hit kernels are timed alone: the windows are made contiguous [R] tensors
-and K1's tables are cached before the timed launches, so the events
-bracket the kernels and nothing else on the device.
+Kernel times (utils/timing.py): device_ms is the kernel's own duration
+on the device, from torch.profiler's kernel records (or CUDA events
+around a CUDA graph of the launches where the profiler records none), and
+is each kernel line's ms; call_ms is CUDA events around the Python calls,
+the wrapper's host work included.  Hit kernels are timed with their
+windows made contiguous [R] tensors and K1's tables cached beforehand.
 
 Every kernel's line carries a bound: the larger of the bytes its launch
 must move (each input read once, each output written once) over 3.35 TB/s
 and the operations this run's inputs need over 67 TFLOP/s FP32 (the H100
 SXM data sheet): 55 flops per ray-triangle test (the JAX microbenchmark's
-Möller–Trumbore count), 30 per ray-sphere test and 27 per slab test.  The
+Möller–Trumbore count), 30 per ray-sphere test and 27 per slab test.
+mt_linear also has a tensor-core bound: its product over the 10 nonzero
+features over 495 TFLOP/s TF32, plus its epilogue over FP32.  The
 67 TFLOP/s counts a fused multiply-add as two flops; the kernels are built
 with -fmad=false (bitwise equal to their plain versions), so they issue a
 separate instruction per multiply and per add and can reach at most about
@@ -107,9 +118,12 @@ GOLDEN_ENV = os.path.join(GOLDEN_DIR, "envopen_bdpt_48x36_d5_8spp_seed0.npz")
 K3_CHECK = (4096, 16)                          # rays, visits of the K3 checks
 K3_ITERS = 64                                  # visits of the K3 timing
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 flop/s (no tensor
-# cores); the per-test operation counts of the bounds
-HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
+# cores), dense TF32 tensor-core flop/s; the per-test operation counts of
+# the bounds
+HBM_BPS, FP32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
 MT_FLOPS, SPHERE_FLOPS, SLAB_FLOPS = 55, 30, 27
+MT_EPILOGUE_FLOPS = 5      # the linear form's reciprocal, 3 mul, 1 add
+LINEAR_FEATURES = 10       # nonzero features of z: o, d, o x d, 1
 
 
 class PhaseError(RuntimeError):
@@ -140,64 +154,6 @@ def block_err(ref, mine, nb=8, floor=0.05):
     return np.abs(a - b) / (np.abs(a) + floor)
 
 
-# --- ray populations --------------------------------------------------------
-
-def soup_scene(device, n_tris=8192, seed=0):
-    """Cornell-box lights/camera/spheres with a random soup of n_tris small
-    triangles inside the box as geometry."""
-    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
-        make_cornell_box)
-    from bidirectional_pathtracing_tpu_torch.scene.types import make_geometry
-    rng = np.random.default_rng(seed)
-    c = rng.uniform([-1.0, 0.0, -1.0], [1.0, 1.5, 1.0], (n_tris, 1, 3))
-    p = (c + rng.uniform(-0.06, 0.06, (n_tris, 3, 3))).astype(np.float32)
-    n = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
-    n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
-    box = make_cornell_box(sphere_materials=("mirror", "glass"), device=device)
-    g = box.geometry
-    geom = make_geometry(p, np.repeat(n[:, None], 3, axis=1),
-                         np.zeros(n_tris, np.int32),
-                         g.sph_c.cpu().numpy(), g.sph_r.cpu().numpy(),
-                         g.sph_mat.cpu().numpy(), device=device)
-    return box._replace(geometry=geom)
-
-
-def ray_populations(scene, n, seed):
-    """camera, bounce and shadow populations: (name, o, d, min_t, max_t).
-    Bounce rays leave the camera rays' hits (through the scene's dispatch)
-    in random directions."""
-    import torch
-    from bidirectional_pathtracing_tpu_torch.core.math import EPS_F, INF_D
-    from bidirectional_pathtracing_tpu_torch.ops import camera_ops
-    from bidirectional_pathtracing_tpu_torch.ops.intersect import (
-        scene_intersect)
-    dev = scene.device
-    rng = np.random.default_rng(seed)
-    xy = torch.from_numpy(rng.uniform(0, 1, (n, 2)).astype(np.float32)).to(dev)
-    o_cam, d_cam = camera_ops.generate_ray(scene.camera, xy[:, 0], xy[:, 1])
-    o_cam = o_cam.contiguous()
-    cam = ("camera", o_cam, d_cam, scene.camera.nclip, scene.camera.fclip)
-    hit = scene_intersect(scene, o_cam, d_cam, scene.camera.nclip,
-                          scene.camera.fclip)
-    # bounce rays: from camera hits (or a point in the box) in random dirs
-    inside = torch.from_numpy(rng.uniform([-1, 0, -1], [1, 1.5, 1], (n, 3))
-                              .astype(np.float32)).to(dev)
-    o_b = torch.where(hit.valid[:, None], o_cam + hit.t[:, None] * d_cam,
-                      inside)
-    d_b = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
-    d_b = d_b / torch.linalg.vector_norm(d_b, dim=-1, keepdim=True)
-    bounce = ("bounce", o_b, d_b, EPS_F, INF_D)
-    # shadow segments: hit point -> a random point, clipped like
-    # scene_occluded_segment
-    tgt = torch.from_numpy(rng.uniform([-1, 0, -1], [1, 1.5, 1], (n, 3))
-                           .astype(np.float32)).to(dev)
-    seg = tgt - o_b
-    dist = torch.linalg.vector_norm(seg, dim=-1).clamp_min(1e-10)
-    d_s = seg / dist[:, None]
-    shadow = ("shadow", o_b, d_s, EPS_F, dist * (1.0 - 2e-4) - EPS_F)
-    return [cam, bounce, shadow]
-
-
 def edge_band(t_open, lo, hi):
     """Rays whose open-window closest t lies within 1e-4 max_t of a window
     edge, where any hit and closest hit may round differently."""
@@ -210,7 +166,8 @@ def edge_band(t_open, lo, hi):
 
 def compare_kernel(scene, pops, label):
     """Closest hit and any hit of K1 against the plain version on the same
-    tensors.  Returns (report dict, max |dt| on agreeing rays)."""
+    tensors: t and prim bitwise equal on every ray.  Returns (report
+    dict, max |dt| on the plain version's hits)."""
     import torch
     from bidirectional_pathtracing_tpu_torch.core.math import INF_D
     from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
@@ -224,16 +181,10 @@ def compare_kernel(scene, pops, label):
         t_p, p_p = ib.brute_hit_plain(g, o, d, lo, hi)
         torch.cuda.synchronize()
         t_k, p_k, t_p, p_p = (x.cpu().numpy() for x in (t_k, p_k, t_p, p_p))
-        v_k, v_p = t_k < INF_D, t_p < INF_D
-        bad = int(((v_k != v_p) | (p_k != p_p)).sum())
-        agree = v_k & v_p & (p_k == p_p)
-        tri = agree & (p_p < num_t)
-        sph = agree & (p_p >= num_t)
-        rel = np.abs(t_k - t_p) / np.maximum(np.abs(t_p), 1e-30)
-        tri_rel = float(rel[tri].max()) if tri.any() else 0.0
-        sph_rel = float(rel[sph].max()) if sph.any() else 0.0
-        if agree.any():
-            max_err = max(max_err, float(np.abs(t_k - t_p)[agree].max()))
+        v_p = t_p < INF_D
+        bad = int(((t_k != t_p) | (p_k != p_p)).sum())
+        if v_p.any():
+            max_err = max(max_err, float(np.abs(t_k - t_p)[v_p].max()))
         # any hit: the kernel's closest hit read as prim >= 0 against the
         # plain `occluded`, outside the window-edge band
         hi_t = torch.as_tensor(hi, device=o.device).expand(r)
@@ -247,16 +198,14 @@ def compare_kernel(scene, pops, label):
         any_bad = int(((any_k != any_p) & ~edge).sum())
         rec = {"rays": r, "hits": int(v_p.sum()),
                "sphere_hits": int((v_p & (p_p >= num_t)).sum()),
-               "disagree": bad, "tri_t_max_rel": tri_rel,
-               "sph_t_max_rel": sph_rel, "any_hit_disagree": any_bad,
+               "gate": "bitwise", "differ": bad,
+               "any_hit_disagree": any_bad,
                "any_hit_edge_excluded": int(edge.sum()),
                "occluded": int(any_p.sum())}
         report[name] = rec
         print(f"[phase2] {label}/{name}: {json.dumps(rec)}")
-        check(bad <= 1e-4 * r, f"{label}/{name}: {bad} of {r} rays disagree "
-              "on valid/prim (limit 0.01%)")
-        check(tri_rel <= 1e-6, f"{label}/{name}: triangle t rel err {tri_rel}")
-        check(sph_rel <= 1e-4, f"{label}/{name}: sphere t rel err {sph_rel}")
+        check(bad == 0, f"{label}/{name}: {bad} of {r} rays differ from the "
+              "plain version in t or prim (bitwise gate)")
         check(any_bad <= 1e-4 * r, f"{label}/{name}: {any_bad} any-hit "
               "disagreements outside the window-edge band")
     return report, max_err
@@ -325,28 +274,6 @@ def compare_clustered(scene, pops, label):
     return report, max_err
 
 
-def per_ray(x, o):
-    """A window bound (scalar or [R]) as a contiguous [R] f32 tensor on o's
-    device, made before a timed launch so that the launch does not."""
-    import torch
-    return torch.as_tensor(x, dtype=torch.float32, device=o.device).expand(
-        o.shape[0]).contiguous()
-
-
-def time_ms(fn, reps):
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def time_clustered(scene, gpu):
     """K2 at the main path's launch sizes on the mesh box: the walk (closest
     hit, Morton key) and the shadow batch (any hit, first-crossed-cluster
@@ -364,6 +291,10 @@ def time_clustered(scene, gpu):
     from bidirectional_pathtracing_tpu_torch.ops import intersect as isx
     from bidirectional_pathtracing_tpu_torch.ops import (
         intersect_clustered as icl)
+    from bidirectional_pathtracing_tpu_torch.tools.rays import (
+        per_ray, ray_populations)
+    from bidirectional_pathtracing_tpu_torch.utils.timing import (
+        call_ms, device_ms)
     cl, geom = scene.clusters, scene.geometry
     pops = {p[0]: p for p in ray_populations(scene, SHADOW_RAYS, 3)}
     _, o_w, d_w, lo_w, hi_w = pops["bounce"]
@@ -390,15 +321,18 @@ def time_clustered(scene, gpu):
                 return isx._sorted_clustered_occluded(scene, o, d, lo, hi)
             return isx._sorted_clustered_intersect(scene, o, d, lo, hi)
 
+        def unsorted():
+            return icl.clustered_hit(cl, o, d, lo, hi, any_hit)
+
         rec = {"rays": r}
-        rec["kernel_unsorted_ms"] = time_ms(
-            lambda: icl.clustered_hit(cl, o, d, lo, hi, any_hit), 5)
-        rec["kernel_sorted_ms"] = time_ms(
+        rec["kernel_unsorted_ms"] = call_ms(unsorted, 5)
+        rec["kernel_sorted_ms"] = call_ms(
             lambda: icl.clustered_hit(cl, o_p, d_p, lo_p, hi_p, any_hit), 5)
-        rec["key_ms"] = time_ms(key, 3)
-        rec["dispatch_sorted_ms"] = time_ms(dispatch, 3)
-        rec["kernel_unsorted_ms_2"] = time_ms(
-            lambda: icl.clustered_hit(cl, o, d, lo, hi, any_hit), 5)
+        rec["key_ms"] = call_ms(key, 3)
+        rec["dispatch_sorted_ms"] = call_ms(dispatch, 3)
+        rec["kernel_unsorted_ms_2"] = call_ms(unsorted, 5)
+        rec["device_ms"], rec["device_source"] = device_ms(
+            unsorted, "clustered_hit", 5)
 
         # the outputs of what was timed
         t_u, s_u = icl.clustered_hit(cl, o, d, lo, hi, any_hit)
@@ -552,6 +486,27 @@ def render_vs(label, ref_c, got, mean_tol, block_tol):
     return rel, float(err.mean())
 
 
+def hold_k3(label, name, got, ref, rays, amat, iters):
+    """mt_vpu bitwise against its plain version; mt_linear by
+    ops/mt_bench.py linear_gate (a stated tolerance: the tensor cores sum
+    in an unspecified order).  Returns the record."""
+    from bidirectional_pathtracing_tpu_torch.ops import mt_bench as mb
+    if name == "mt_vpu":
+        bad = int((got != ref).any(0).sum())
+        rec = {"gate": "bitwise", "differ": bad}
+        check(bad == 0, f"{label}: {bad} of {ref.shape[1]} rays differ from "
+              "the plain version (bitwise gate)")
+    else:
+        rec = {"gate": "tolerance", **mb.linear_gate(got, ref, rays, amat,
+                                                     iters)}
+        check(rec["ok"], f"{label}: fails the tolerance gate against the "
+              f"plain FP32 version: {json.dumps(rec)}")
+    hit = (got[1] >= 0) & (got[1] == ref[1])
+    rec["max_abs_err"] = float((got[0] - ref[0]).abs()[hit].max()) \
+        if bool(hit.any()) else 0.0
+    return rec
+
+
 def phase6_k3(dev, gpu):
     """K3 against its plain versions, then its entry point timed.  Returns
     {"kernels": [mt_vpu line, mt_linear line], "detail": {...}}."""
@@ -570,18 +525,25 @@ def phase6_k3(dev, gpu):
             ref = plain(rays, table, iters, late)
             torch.cuda.synchronize()
             label = f"{name}{'_late' if late else ''}"
-            bad = int((got != ref).any(0).sum())
             rec = {"rays": r, "iters": iters,
-                   "hits": int((ref[1] >= 0).sum()), "differ": bad}
+                   "hits": int((ref[1] >= 0).sum()),
+                   **hold_k3(label, name, got, ref, rays, amat, iters)}
             print(f"[phase6] {label} vs plain: {json.dumps(rec)}")
-            check(bad == 0, f"{label}: {bad} of {r} rays differ from the "
-                  "plain version (bitwise gate)")
             detail[label] = rec
             outs[label] = got
     agree = int((outs["mt_vpu"][1] == outs["mt_linear"][1]).sum())
     print(f"[phase6] vpu and linear forms pick the same winner on {agree} of "
           f"{r} rays")
     detail["vpu_linear_agree"] = agree
+    # what a bare rtol would see between evaluations that differ only in
+    # rounding: the plain FP32 version against its sums right to left and
+    # against float64
+    wit = mb.rtol_witness(rays, amat, iters)
+    print(f"[phase6] R={r} iters={iters} rounding witness against the plain "
+          f"FP32 version: {json.dumps(wit)}; the kernel: "
+          f"{detail['mt_linear']['t_beyond_rtol']} of its hits beyond rtol "
+          f"{mb.GATE_RTOL}")
+    detail["rtol_witness"] = wit
 
     # the entry point, with K3's launches counted over it alone
     mb.mt_vpu.launches = mb.mt_linear.launches = 0
@@ -618,20 +580,19 @@ def phase6_k3(dev, gpu):
                 plain_ms[name] = start.elapsed_time(end)
             rec = res[n][variant]
             got = rec.pop("out")
-            bad = int((got != ref).any(0).sum())
-            err = float((got - ref).abs().max())
-            max_err[name] = max(max_err[name], err)
-            rec.update(differ=bad, max_abs_err=err)
+            rec.update(hold_k3(f"{variant} R={n}", name, got, ref, rays, amat,
+                               K3_ITERS))
+            if variant == "mxu":
+                rec["rtol_witness"] = mb.rtol_witness(rays, amat, K3_ITERS)
+            max_err[name] = max(max_err[name], rec["max_abs_err"])
             runs[n][variant] = rec
             print(f"[phase6] {variant} R={n} iters={K3_ITERS} vs plain: "
-                  f"{bad} rays differ, max |diff| {err}")
-            check(bad == 0, f"{variant} R={n}: {bad} of {n} rays differ from "
-                  "the plain version (bitwise gate)")
+                  f"{json.dumps(rec)}")
         del rays, tris, amat
     detail["runs"] = runs
 
     big = 65536
-    n_ops = MT_FLOPS * mb.TC * big * K3_ITERS
+    tests = mb.TC * big * K3_ITERS
     lines = []
     for name, variant, table_bytes, fn_file_line in (
             ("mt_vpu", "vpu", 4 * mb.NSLOT * 9 * mb.TC,   # the vertex rows
@@ -639,18 +600,34 @@ def phase6_k3(dev, gpu):
             ("mt_linear", "mxu", 4 * mb.NSLOT * 4 * mb.TC * mb.N_FEAT,
              "tools/profiling/mxu_mt_bench.py:99")):
         n_bytes = 4 * (8 + 2) * big + table_bytes
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
-        ms = runs[big][variant]["ms"]
-        print(f"[phase6] {name} R={big} iters={K3_ITERS}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms[name]:.3f} ms, bound {b_ms:.4f} ms ({b_by}) "
-              f"({gpu})")
-        lines.append({
+        b_ms, b_by = bound_ms(n_bytes, MT_FLOPS * tests)
+        rec = runs[big][variant]
+        ms = rec["device_ms"]
+        line = {
             "name": name, "route": "cuda",
             "source": "bidirectional_pathtracing_tpu_torch/csrc/mt_bench.cu",
             "replaces": fn_file_line, "launches": launches[name],
-            "max_abs_err": max_err[name], "ms": ms,
-            "plain_ms": plain_ms[name], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None})
+            "max_abs_err": max_err[name], "ms": ms, "device_ms": ms,
+            "device_source": rec["device_source"], "call_ms": rec["call_ms"],
+            "gate": rec["gate"], "plain_ms": plain_ms[name], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+        extra = ""
+        if name == "mt_linear":
+            # the tensor-core form's own bound: the [512, 16] x [16, R]
+            # product per visit over the TF32 peak, counting the 10 nonzero
+            # features (the kernel multiplies 12: 8-11 go through m16n8k4),
+            # plus the epilogue's reciprocal, 3 multiplies and 1 add per
+            # test over FP32
+            tc_ms = (2 * 4 * mb.TC * LINEAR_FEATURES * big * K3_ITERS
+                     / TF32_FLOPS + MT_EPILOGUE_FLOPS * tests / FP32_FLOPS) * 1e3
+            line.update(bound_tc_ms=tc_ms, bound_tc_features=LINEAR_FEATURES,
+                        features_multiplied=12, share_fp32_bound=b_ms / ms,
+                        share_tc_bound=tc_ms / ms)
+            extra = f", tensor-core bound {tc_ms:.4f} ms"
+        print(f"[phase6] {name} R={big} iters={K3_ITERS}: device {ms:.4f} ms, "
+              f"call {rec['call_ms']:.4f} ms, plain {plain_ms[name]:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}){extra} ({gpu})")
+        lines.append(line)
     return {"kernels": lines, "detail": detail}
 
 
@@ -731,6 +708,7 @@ def main() -> int:
     gpu = gpu_line()
     print(f"[phase0] gpu: {gpu}")
     from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.core.math import INF_D
     from bidirectional_pathtracing_tpu_torch.ops import _build
     from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
     from bidirectional_pathtracing_tpu_torch.ops import (
@@ -741,7 +719,11 @@ def main() -> int:
         attach_accelerator)
     from bidirectional_pathtracing_tpu_torch.scene.procedural import (
         make_cornell_box, make_mesh_cornell_box)
+    from bidirectional_pathtracing_tpu_torch.tools.rays import (
+        per_ray, ray_populations, soup_scene)
     from bidirectional_pathtracing_tpu_torch.utils.render import render
+    from bidirectional_pathtracing_tpu_torch.utils.timing import (
+        call_ms, device_ms)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -777,17 +759,38 @@ def main() -> int:
     for label, (o, d, lo_in, hi_in) in {
             "walk_172800": (o_w, d_w, lo_w, hi_w),
             "shadow_6220800": (o_s, d_s, lo_s, hi_s)}.items():
-        # the kernel alone: windows as contiguous [R] tensors, the tables
-        # cached by time_ms's warm-up launch
+        # windows as contiguous [R] tensors, the tables cached by the
+        # warm-up launch; device_ms is the kernel's own time, call_ms the
+        # Python call's (wrapper included)
         lo, hi = per_ray(lo_in, o), per_ray(hi_in, o)
-        k_ms = time_ms(lambda: ib.brute_hit(g, o, d, lo, hi), 20)
-        p_ms = time_ms(lambda: ib.brute_hit_plain(g, o, d, lo, hi), 3)
-        k_ms2 = time_ms(lambda: ib.brute_hit(g, o, d, lo, hi), 20)
+
+        def kernel():
+            return ib.brute_hit(g, o, d, lo, hi)
+
+        def plain():
+            return ib.brute_hit_plain(g, o, d, lo, hi)
+
+        k_ms = call_ms(kernel, 20)
+        p_ms = call_ms(plain, 3)
+        k_ms2 = call_ms(kernel, 20)
+        dev_ms, src = device_ms(kernel, "brute_hit", 20)
+        # the outputs of what was timed, bitwise
+        (t_k, p_k), (t_p, p_p) = kernel(), plain()
+        bad = int(((t_k != t_p) | (p_k != p_p)).sum())
+        hit = t_p < INF_D
+        max_abs_err = max(max_abs_err, float((t_k - t_p).abs()[hit].max())
+                          if bool(hit.any()) else 0.0)
+        check(bad == 0, f"{label}: {bad} of {o.shape[0]} rays differ from "
+              "the plain version in t or prim (bitwise gate)")
+        del t_k, p_k, t_p, p_p
         b_ms, b_by = bound_ms(*brute_work(g, lo_in, hi_in, o.shape[0]))
-        times[label] = {"rays": o.shape[0], "kernel_ms": min(k_ms, k_ms2),
-                        "plain_ms": p_ms, "bound": (b_ms, b_by)}
-        print(f"[phase2] time {label}: kernel {k_ms:.4f} / {k_ms2:.4f} ms, "
-              f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}) ({gpu})")
+        times[label] = {"rays": o.shape[0], "device_ms": dev_ms,
+                        "device_source": src, "call_ms": min(k_ms, k_ms2),
+                        "plain_ms": p_ms, "bound": (b_ms, b_by),
+                        "differ": bad}
+        print(f"[phase2] time {label}: device {dev_ms:.4f} ms ({src}), call "
+              f"{k_ms:.4f} / {k_ms2:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}), 0 rays differ from plain ({gpu})")
     del pops, o_s, d_s, hi_s
 
     # --- phase 3a: kernel vs plain render ----------------------------------
@@ -902,16 +905,22 @@ def main() -> int:
     k3 = phase6_k3(dev, gpu)
     env = phase7_env(dev, gpu, mesh)
 
-    # K1: ms / plain_ms / bound of the 6,220,800-segment shadow batch, and
-    # the same of the 172,800-ray walk under walk_172800_*.  K2: ms and
-    # bound of the 6,220,800-segment shadow batch as the default dispatch
-    # launches it (unsorted), and of the walk under walk_172800_*; plain_ms
-    # of the 172,800-ray walk (the plain version is timed at the walk size
-    # only).  K3: the vpu / mxu variants at 65,536 rays and 64 visits.
+    # Every kernel: ms is device_ms, the kernel's own time on the device
+    # (utils/timing.py; device_source says whether from the profiler or a
+    # CUDA graph), call_ms the Python call's (wrapper included), gate how
+    # it is held against its plain version.  K1: the 6,220,800-segment
+    # shadow batch, and the 172,800-ray walk under walk_172800_*.  K2: the
+    # shadow batch as the default dispatch launches it (unsorted), and the
+    # walk under walk_172800_*; plain_ms of the 172,800-ray walk (the plain
+    # version is timed at the walk size only).  K3: the vpu / mxu variants
+    # at 65,536 rays and 64 visits; mt_linear also carries its tensor-core
+    # bound and its share of both bounds.
     k2_bound = bound_ms(k2_times["shadow_6220800"]["bound_bytes"],
                         k2_times["shadow_6220800"]["bound_ops"])
     k2_walk_bound = bound_ms(k2_times["walk_172800"]["bound_bytes"],
                              k2_times["walk_172800"]["bound_ops"])
+    k1s, k1w = times["shadow_6220800"], times["walk_172800"]
+    k2s, k2w = k2_times["shadow_6220800"], k2_times["walk_172800"]
     kernels = {"kernels": [{
         "name": "brute_hit",
         "route": "cuda",
@@ -919,15 +928,21 @@ def main() -> int:
         "replaces": "bidirectional_pathtracing_tpu/ops/intersect_pallas.py:45",
         "launches": launches,
         "max_abs_err": max_abs_err,
-        "ms": times["shadow_6220800"]["kernel_ms"],
-        "plain_ms": times["shadow_6220800"]["plain_ms"],
-        "bound_ms": times["shadow_6220800"]["bound"][0],
-        "bound_by": times["shadow_6220800"]["bound"][1],
+        "ms": k1s["device_ms"],
+        "device_ms": k1s["device_ms"],
+        "device_source": k1s["device_source"],
+        "call_ms": k1s["call_ms"],
+        "gate": "bitwise",
+        "plain_ms": k1s["plain_ms"],
+        "bound_ms": k1s["bound"][0],
+        "bound_by": k1s["bound"][1],
         "library_ms": None,
-        "walk_172800_ms": times["walk_172800"]["kernel_ms"],
-        "walk_172800_plain_ms": times["walk_172800"]["plain_ms"],
-        "walk_172800_bound_ms": times["walk_172800"]["bound"][0],
-        "walk_172800_bound_by": times["walk_172800"]["bound"][1],
+        "walk_172800_ms": k1w["device_ms"],
+        "walk_172800_device_ms": k1w["device_ms"],
+        "walk_172800_call_ms": k1w["call_ms"],
+        "walk_172800_plain_ms": k1w["plain_ms"],
+        "walk_172800_bound_ms": k1w["bound"][0],
+        "walk_172800_bound_by": k1w["bound"][1],
     }, {
         "name": "clustered_hit",
         "route": "cuda",
@@ -936,12 +951,17 @@ def main() -> int:
             "bidirectional_pathtracing_tpu/ops/intersect_clustered.py:70",
         "launches": k2_launches,
         "max_abs_err": k2_err,
-        "ms": min(k2_times["shadow_6220800"]["kernel_unsorted_ms"],
-                  k2_times["shadow_6220800"]["kernel_unsorted_ms_2"]),
-        "plain_ms": k2_times["walk_172800"]["plain_ms"],
+        "ms": k2s["device_ms"],
+        "device_ms": k2s["device_ms"],
+        "device_source": k2s["device_source"],
+        "call_ms": min(k2s["kernel_unsorted_ms"], k2s["kernel_unsorted_ms_2"]),
+        "gate": "tolerance",
+        "plain_ms": k2w["plain_ms"],
         "plain_ms_rays": "walk_172800",
-        "walk_172800_ms": min(k2_times["walk_172800"]["kernel_unsorted_ms"],
-                              k2_times["walk_172800"]["kernel_unsorted_ms_2"]),
+        "walk_172800_ms": k2w["device_ms"],
+        "walk_172800_device_ms": k2w["device_ms"],
+        "walk_172800_call_ms": min(k2w["kernel_unsorted_ms"],
+                                   k2w["kernel_unsorted_ms_2"]),
         "walk_172800_bound_ms": k2_walk_bound[0],
         "walk_172800_bound_by": k2_walk_bound[1],
         "bound_ms": k2_bound[0],

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain torch versions, on the card: the
-brute-force kernel (csrc/brute_hit.cu), the clustered kernel
+brute-force kernel (csrc/brute_hit.cu; bitwise), the clustered kernel
 (csrc/clustered_hit.cu) and the K3 microbenchmark kernels
-(csrc/mt_bench.cu); and env-lit renders through K1 and K2 against the
-plain version.
+(csrc/mt_bench.cu; mt_vpu bitwise, mt_linear by the tolerance gate
+ops/mt_bench.py linear_gate); env-lit renders through K1 and K2 against
+the plain version; and the two sources of utils/timing.py device_ms.
 
 Jax-free, so it runs where the card is (that machine has no jax; the
 repo's conftest imports it, so pass --noconftest):
@@ -370,9 +371,10 @@ def test_render_through_clustered_kernel_matches_plain(cuda):
 
 @pytest.mark.parametrize("form", ["vpu", "linear"])
 def test_mt_bench_kernels_match_plain_bitwise(cuda, form):
-    """K3 at 4,096 rays (and a ragged 1,001), both `late` settings:
-    -fmad=false and the plain versions' summation order make t and the
-    index bitwise equal."""
+    """K3 at 4,096 rays (and a ragged 1,001), both `late` settings against
+    the plain versions: mt_vpu bitwise (-fmad=false and the plain version's
+    summation order), mt_linear, which sums on the tensor cores, by the
+    shared tolerance gate ops/mt_bench.py linear_gate."""
     from bidirectional_pathtracing_tpu_torch.ops import mt_bench as mb
     fn, plain, k = ((mb.mt_vpu, mb.mt_vpu_plain, 1) if form == "vpu"
                     else (mb.mt_linear, mb.mt_linear_plain, 2))
@@ -386,8 +388,124 @@ def test_mt_bench_kernels_match_plain_bitwise(cuda, form):
             ref = plain(rays, table, iters, late)
             torch.cuda.synchronize()
             assert got.shape == (2, r) and got.dtype == torch.float32
-            assert torch.equal(got, ref)
+            if form == "vpu":
+                assert torch.equal(got, ref)
+            else:
+                rec = mb.linear_gate(got, ref, rays, table, iters)
+                assert rec["ok"], rec
             assert int((got[1] >= 0).sum()) > r // 10
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 129, 1001, 20_001])
+def test_mt_vpu_ragged_rays_bitwise(cuda, n):
+    """mt_vpu at ray counts that end inside a thread's ray set, a warp or
+    a block, both `late` settings: bitwise equal to the plain version."""
+    from bidirectional_pathtracing_tpu_torch.ops import mt_bench as mb
+    rays, tris, _ = (torch.from_numpy(a).to(cuda) for a in mb.make_inputs(n))
+    for late in (False, True):
+        assert torch.equal(mb.mt_vpu(rays, tris, 9, late),
+                           mb.mt_vpu_plain(rays, tris, 9, late))
+
+
+@pytest.mark.parametrize("iters", [0, 1, 9])
+def test_mt_linear_gate_ragged(cuda, iters):
+    """mt_linear by linear_gate at ray counts that are not a multiple of a
+    warp's ray tile (16) or a block's (256), 0, 1 and 9 visits, both
+    `late` settings; no visit leaves every ray a miss."""
+    from bidirectional_pathtracing_tpu_torch.ops import mt_bench as mb
+    for n in (5, 4099):
+        rays, _, amat = (torch.from_numpy(a).to(cuda)
+                         for a in mb.make_inputs(n, seed=n))
+        for late in (False, True):
+            got = mb.mt_linear(rays, amat, iters, late)
+            ref = mb.mt_linear_plain(rays, amat, iters, late)
+            rec = mb.linear_gate(got, ref, rays, amat, iters)
+            assert rec["ok"], rec
+            if iters == 0:
+                assert bool((got[0] == mb.INF).all() and (got[1] == -1).all())
+
+
+def _brute_bitwise(g, o, d, lo, hi):
+    t, prim = ib.brute_hit(g, o, d, lo, hi)
+    rt, rp = ib.brute_hit_plain(g, o, d, lo, hi)
+    torch.cuda.synchronize()
+    assert torch.equal(t, rt) and torch.equal(prim, rp)
+    return rp
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 129, 20_001])
+def test_kernel_ragged_rays_bitwise(cuda, n):
+    """K1 on the Cornell box (a parameter table) at ray counts that end
+    inside a thread's ray set, a warp or a block: t and prim bitwise equal
+    to the plain version, open windows and segments."""
+    g = make_cornell_box(sphere_materials=("mirror", "glass"),
+                         device=cuda).geometry
+    o, d, lo, hi = _random_rays(n, cuda, seed=n)
+    for mx in (torch.full((n,), INF_D, device=cuda), hi):
+        _brute_bitwise(g, o, d, lo, mx)
+
+
+@pytest.mark.parametrize("size", ["cap", "cap+1", "8192"])
+def test_kernel_table_sizes_bitwise(cuda, size):
+    """K1 with a soup at the parameter table's cap (by value), one
+    triangle above it and at 8,192 triangles (both through shared memory):
+    bitwise equal to the plain version."""
+    cap = ib.param_caps()[0]
+    n_tris = {"cap": cap, "cap+1": cap + 1, "8192": 8192}[size]
+    g = _soup(cuda, n_tris=n_tris, seed=5).geometry
+    o, d, lo, hi = _random_rays(20_001, cuda, seed=6)
+    for mx in (torch.full((20_001,), INF_D, device=cuda), hi):
+        rp = _brute_bitwise(g, o, d, lo, mx)
+        assert int((rp >= 0).sum()) > 2_000
+
+
+def test_kernel_tie_rules(cuda):
+    """Exact ties on K1's two paths: the same triangle stored twice (the
+    lower index wins), a triangle at exactly a sphere's t (the triangle
+    wins), the same sphere twice (the lower sphere wins)."""
+    tri = np.array([[-1, -1, -1], [1, -1, -1], [0, 1, -1]], np.float32)
+    far = tri + np.float32(5.0)
+    n = 64
+    rng = np.random.default_rng(9)
+    o = np.concatenate([rng.uniform(-0.1, 0.1, (n, 2)),
+                        np.full((n, 1), -5.0)], 1).astype(np.float32)
+    o[0, :2] = 0.0             # this ray meets triangle and sphere at t = 4
+    d = np.tile(np.array([0, 0, 1], np.float32), (n, 1))
+    args = [torch.from_numpy(x).to(cuda) for x in (o, d)]
+    for tris, want in (([far, tri, tri], 1), ([tri, far], 0)):
+        p = np.stack(tris)
+        g = make_geometry(p, np.zeros_like(p) + [0, 0, -1],
+                          np.zeros(len(p), np.int32),
+                          np.zeros((2, 3), np.float32),
+                          np.ones(2, np.float32), np.zeros(2, np.int32),
+                          device=cuda)
+        rp = _brute_bitwise(g, *args, EPS_F, INF_D)
+        assert int(rp[0]) == want and bool((rp == want).all())
+    g = make_geometry(far[None], np.zeros((1, 3, 3), np.float32) + [0, 0, -1],
+                      np.zeros(1, np.int32), np.zeros((2, 3), np.float32),
+                      np.ones(2, np.float32), np.zeros(2, np.int32),
+                      device=cuda)
+    rp = _brute_bitwise(g, *args, EPS_F, INF_D)
+    assert bool((rp == 1).all())           # sphere 0, prim_base 1
+
+
+def test_device_time_sources_agree(cuda):
+    """utils/timing.py: the profiler's kernel time and a CUDA graph's agree
+    on a kernel of about a millisecond."""
+    from bidirectional_pathtracing_tpu_torch.ops import mt_bench as mb
+    from bidirectional_pathtracing_tpu_torch.utils.timing import (
+        device_ms, graph_ms, profiler_ms)
+    rays, tris, _ = (torch.from_numpy(a).to(cuda)
+                     for a in mb.make_inputs(65536))
+
+    def call():
+        return mb.mt_vpu(rays, tris, 32)
+    prof = profiler_ms(call, "mt_vpu", 5)
+    graph = graph_ms(call, 5)
+    assert prof is not None and 0.2 < prof < 10
+    assert abs(graph - prof) <= 0.2 * prof
+    ms, src = device_ms(call, "mt_vpu", 5)
+    assert src == "profiler" and abs(ms - prof) <= 0.2 * prof
 
 
 def _env_render_pair(scene, counter):

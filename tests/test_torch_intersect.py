@@ -225,7 +225,7 @@ def test_kernel_tables_built_once_per_geometry():
     when the geometry changes: another geometry, or an in-place edit of
     one of its tensors."""
     g = port_scene(jproc.make_cornell_box()).geometry
-    tri, sph = tib._tables(g)
+    tri, sph, _ = tib._tables(g)
     assert torch.equal(tri, tib.make_tri_soa(g))
     assert torch.equal(sph, tib.make_sph_soa(g))
     again = tib._tables(g)
@@ -233,9 +233,21 @@ def test_kernel_tables_built_once_per_geometry():
     g2 = g._replace(tri_valid=torch.zeros_like(g.tri_valid))
     assert not tib._tables(g2)[0].any()
     g.tri_p[0, 0, 0] += 1.0                # in place: a new version
-    tri3, _ = tib._tables(g)
+    tri3 = tib._tables(g)[0]
     assert tri3 is not tri and torch.equal(tri3, tib.make_tri_soa(g))
     assert tib._tables(g)[0] is tri3
+
+
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_kernel_param_table_is_the_tables_bytes(scene):
+    """The host copy the kernel takes as a parameter is make_tri_soa then
+    make_sph_soa byte for byte, on the CPU, built once per geometry."""
+    g = port_scene(SCENES[scene]()).geometry
+    _, _, host = tib._tables(g)
+    assert host.device.type == "cpu" and host.dtype == torch.float32
+    assert host.numpy().tobytes() == (tib.make_tri_soa(g).numpy().tobytes()
+                                      + tib.make_sph_soa(g).numpy().tobytes())
+    assert tib._tables(g)[2] is host
 
 
 class _FakeGeom:
