@@ -3,9 +3,11 @@
 A copy of bidirectional_pathtracing_tpu/config.py with the same fields and
 defaults: the JAX package cannot be imported without jax.  It mirrors the
 reference AppConfig (reference: src/application/application.h:43-87) plus
-the hard-coded knobs surfaced per SURVEY.md section 5.  Fields the ported
-slice does not read yet (PT, adaptive sampling, thin lens, envmap, cell)
-keep their names so configs move between the packages unchanged.
+the hard-coded knobs surfaced per SURVEY.md section 5.  Fields the port
+does not read yet keep their names so configs move between the packages
+unchanged: envmap_path (no EXR reader yet; render() raises when it is set
+and the scene has no envmap) and the output fields, which belong to the
+CLI (ROADMAP A4).
 """
 
 from __future__ import annotations

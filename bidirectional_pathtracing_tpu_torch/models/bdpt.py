@@ -496,15 +496,15 @@ def _scene_bounds(scene: Scene):
 
 
 def _env_subpath_splats(scene: Scene, keys, width: int, height: int,
-                        nv: int, ctr, rad_b, pdf_pos, light_img, inv_ns_aa,
+                        nv: int, ctr, rad_b, pdf_pos, splats, inv_ns_aa,
                         isect: Intersector = DISPATCH):
     """Strategy family (c): env emission subpaths connected to the camera
     as light-image splats, power-2-weighted against the eye-side env
     strategies of each path class — (b) env NEE at the env-adjacent vertex
     and (d) the eye walk's BSDF-sampled miss pickup (JAX package
     :571-681).  The connections' shadow segments go to one any-hit launch.
-    The splats are added to light_img in place.  Returns the measured
-    rays."""
+    The splats, (flat pixel ids, values) pairs, are appended to `splats`.
+    Returns the measured rays."""
     s = keys.shape[0]
     u4 = rng.uniform(rng.fold(keys, 5100), (4,))
     u2 = rng.uniform(rng.fold(keys, 5101), (2,))
@@ -589,8 +589,7 @@ def _env_subpath_splats(scene: Scene, keys, width: int, height: int,
     blk = blk.reshape(len(conns), s)
     for j, (_, _, valid, ill, flat) in enumerate(conns):
         ok = valid & ~blk[j]
-        light_img.index_add_(0, flat,
-                             torch.where(ok[:, None], ill * inv_ns_aa, 0.0))
+        splats.append((flat, torch.where(ok[:, None], ill * inv_ns_aa, 0.0)))
     return sum(c[2].sum() for c in conns) + lp.valid[:, 1:nv].sum()
 
 
@@ -729,6 +728,31 @@ def _eye_on_light_pdfs(scene: Scene, pos, prev_pos):
     return found, point_pdf, dir_pdf_fn, rad
 
 
+def _splat(light_img, flat, vals):
+    """Adds the splats vals [R, 3] into the zero image light_img [P, 3] at
+    the flat pixel ids [R], in place, each pixel summing its splats in lane
+    order, as the JAX package's sequential `.at[].add` does on the CPU.
+
+    On the CPU index_add_ adds serially (index_put_ with accumulate=True
+    would split the work across threads).  On CUDA index_add_ uses
+    atomics, whose arrival order, and so the last bits of a pixel's sum,
+    change from run to run; index_put_ with accumulate=True stable-sorts
+    the ids instead and sums each pixel's run of values in that order, one
+    thread a run, so two renders are bitwise equal.
+
+    Most splats of a pass are masked to zero (their paths ended or left
+    the frame), and their ids pile onto a few pixels: a run of 10^5-10^6,
+    which one thread would sum for hundreds of milliseconds.  Adding a
+    zero changes no sum, so those go to ids spread over the image."""
+    idle = (vals == 0).all(dim=-1)
+    spread = torch.arange(flat.shape[0], device=flat.device) \
+        % light_img.shape[0]
+    flat = torch.where(idle, spread, flat)
+    if light_img.is_cuda:
+        return light_img.index_put_((flat,), vals, accumulate=True)
+    return light_img.index_add_(0, flat, vals)
+
+
 def sample_pass(scene: Scene, key, width: int, height: int, pixel_ids,
                 cfg: RenderConfig, return_stats: bool = False,
                 inv_ns_aa=None, isect: Intersector = DISPATCH):
@@ -780,7 +804,7 @@ def sample_pass(scene: Scene, key, width: int, height: int, pixel_ids,
         light = None
 
     eye_L = torch.zeros((s, 3), device=dev)
-    light_img = torch.zeros((height * width, 3), device=dev)
+    splats = []     # (flat pixel ids, values) in the order they are made
 
     # --- environment light (the JAX package's extension: the reference
     # BDPT asserts on env lights, environment_light.cpp:182-208).  Strategy
@@ -808,7 +832,7 @@ def sample_pass(scene: Scene, key, width: int, height: int, pixel_ids,
         eye_L, env_rays = _env_eye_families(scene, eye, eye_steps, keys, nv,
                                             pdf_pos, isect=isect)
         env_rays = env_rays + _env_subpath_splats(
-            scene, keys, width, height, nv, ctr, rad_b, pdf_pos, light_img,
+            scene, keys, width, height, nv, ctr, rad_b, pdf_pos, splats,
             inv_ns_aa, isect=isect)
 
     # --- connections: i_eye in 1..nv, i_light in 0..nv --------------------
@@ -853,16 +877,17 @@ def sample_pass(scene: Scene, key, width: int, height: int, pixel_ids,
             tables=mis_tables, fresh=fresh)
         if i_eye == 1:
             if splat_xy is not None:
-                # index_add_ is a scatter-add: on CUDA it uses atomics, so
-                # the float sum order of a pixel's splats (and its last
-                # bits) changes from run to run
                 flat = splat_xy[:, 1] * width + splat_xy[:, 0]
                 flat = torch.clamp(flat, 0, height * width - 1).long()
-                light_img.index_add_(
-                    0, flat,
-                    torch.where(splat_mask[:, None], ill * inv_ns_aa, 0.0))
+                splats.append((flat, torch.where(splat_mask[:, None],
+                                                 ill * inv_ns_aa, 0.0)))
         else:
             eye_L = eye_L + ill
+    light_img = torch.zeros((height * width, 3), device=dev)
+    if splats:
+        # one scatter a pass, in the order the splats were made
+        _splat(light_img, torch.cat([f for f, _ in splats]),
+               torch.cat([v for _, v in splats]))
     if not return_stats:
         return eye_L, light_img
 

@@ -2,13 +2,11 @@
 of bidirectional_pathtracing_tpu/ops/camera_ops.py).
 
   - generate_ray: pinhole NDC ray (reference src/pathtracer/camera.cpp:191-212)
+  - generate_ray_thin_lens: depth of field (camera_lens.cpp:22-43)
   - sample_ray_pdf: camera importance We = 1/(A cos^4 theta) with
     A = 4 tan(hFov/2) tan(vFov/2), dir_pdf = d^2/cos(theta), point_pdf = 1,
     and reprojection to pixel coordinates for light-image splats
     (camera.cpp:214-248, per pbr-book 16.1)
-
-The thin-lens generator is used only by the unidirectional PT, which is not
-ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -25,6 +23,10 @@ def _tan_half(deg):
     return torch.tan(torch.deg2rad(deg) / 2.0)
 
 
+def _c2w(cam: Camera, v):
+    return torch.sum(cam.c2w * v[..., None, :], dim=-1)
+
+
 def generate_ray(cam: Camera, x, y):
     """Pinhole rays for NDC coords x,y in [0,1]; returns (o[S,3], d[S,3]).
 
@@ -33,8 +35,31 @@ def generate_ray(cam: Camera, x, y):
     dx = (2.0 * x - 1.0) * _tan_half(cam.hfov)
     dy = (2.0 * y - 1.0) * _tan_half(cam.vfov)
     d_cam = torch.stack([dx, dy, -torch.ones_like(dx)], dim=-1)
-    d = normalize(torch.sum(cam.c2w * d_cam[..., None, :], dim=-1))
+    d = normalize(_c2w(cam, d_cam))
     o = cam.pos.expand(d.shape)
+    return o, d
+
+
+def generate_ray_thin_lens(cam: Camera, x, y, rnd_r, rnd_theta):
+    """Thin-lens rays (camera_lens.cpp:22-43) for NDC coords x,y and lens
+    uniforms rnd_r in [0,1), rnd_theta in [0, 2 pi); returns (o, d).
+
+    The ray through the lens point p_lens toward the focus point
+    ray_dir * focal_distance has the direction of
+    ray_dir - p_lens / focal_distance, which this computes: with
+    lens_radius 0 the lens point is 0 and the rays are generate_ray's bit
+    for bit (the JAX package scales ray_dir by focal_distance instead,
+    which moves the last bits of d)."""
+    lr = cam.lens_radius
+    sr = torch.sqrt(rnd_r)
+    p_lens = torch.stack([lr * sr * torch.cos(rnd_theta),
+                          lr * sr * torch.sin(rnd_theta),
+                          torch.zeros_like(rnd_r)], dim=-1)
+    dx = (2.0 * x - 1.0) * _tan_half(cam.hfov)
+    dy = (2.0 * y - 1.0) * _tan_half(cam.vfov)
+    ray_dir = torch.stack([dx, dy, -torch.ones_like(dx)], dim=-1)
+    d = normalize(_c2w(cam, ray_dir - p_lens / cam.focal_distance))
+    o = cam.pos + _c2w(cam, p_lens)
     return o, d
 
 

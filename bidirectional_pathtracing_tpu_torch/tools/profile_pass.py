@@ -1,8 +1,12 @@
-"""Where a BDPT pass spends its time on the card: one render pass of each
-named scene at 480x360, depth 5, timed and then profiled.
+"""Where a render pass spends its time on the card: one pass of each named
+scene at 480x360, depth 5, timed and then profiled.
 
     python -m bidirectional_pathtracing_tpu_torch.tools.profile_pass \
-        [cornell] [meshbox] [envopen] [meshbox_sky]
+        [--integrator bdpt|pt] [cornell] [meshbox] [envopen] [meshbox_sky]
+
+The integrator is BDPT unless --integrator pt; the PT runs with cfg.pt_mis
+on the env-lit scenes, where it is the PT strategy that reaches the sky
+through specular chains.
 
 Scenes: the Cornell box with mirror and glass spheres (K1), the level-6
 mesh box with clusters (K2), the open env scene (env light only, K1), the
@@ -18,6 +22,7 @@ consumers.  Prints one JSON line per scene.  Needs a CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -53,17 +58,19 @@ def _smi() -> str:
     return out.stdout.strip()
 
 
-def profile(name: str, dev) -> dict:
+def profile(name: str, dev, integrator: str = "bdpt") -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     from bidirectional_pathtracing_tpu_torch.config import RenderConfig
     from bidirectional_pathtracing_tpu_torch.utils.render import render
 
+    scene = build(name, dev)
+
     def cfg(spp, seed):
         return RenderConfig(spp=spp, max_ray_depth=5, width=480, height=360,
-                            integrator="bdpt", seed=seed,
-                            samples_per_chunk=spp)
-    scene = build(name, dev)
+                            integrator=integrator, seed=seed,
+                            samples_per_chunk=spp,
+                            pt_mis=scene.envmap is not None)
     render(scene, cfg(1, 1))
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -80,7 +87,8 @@ def profile(name: str, dev) -> dict:
     launch_ms = sum(e.cpu_time_total for e in events
                     if e.key == "cudaLaunchKernel") / 1e3
     top = sorted(cuda_ev, key=lambda e: -e.self_device_time_total)[:8]
-    return {"scene": name, "pass_s": pass_s, "smi": smi,
+    return {"scene": name, "integrator": integrator, "pass_s": pass_s,
+            "smi": smi,
             "device_ms": device_ms,
             "kernels": sum(e.count for e in cuda_ev),
             "launch_host_ms": launch_ms,
@@ -90,16 +98,20 @@ def profile(name: str, dev) -> dict:
 
 
 def main(argv=None) -> int:
-    names = (argv if argv is not None else sys.argv[1:]) or list(SCENES)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("scenes", nargs="*", metavar="SCENE",
+                    help=f"any of {', '.join(SCENES)} (default: all)")
+    ap.add_argument("--integrator", choices=("bdpt", "pt"), default="bdpt")
+    args = ap.parse_args(argv)
+    for name in args.scenes:
+        if name not in SCENES:
+            ap.error(f"unknown scene {name!r}; one of {SCENES}")
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    for name in names:
-        if name not in SCENES:
-            print(f"unknown scene {name!r}; one of {SCENES}", file=sys.stderr)
-            return 2
-        print(json.dumps(profile(name, dev)), flush=True)
+    for name in args.scenes or SCENES:
+        print(json.dumps(profile(name, dev, args.integrator)), flush=True)
     return 0
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's BDPT main paths on one CUDA card.
+"""Drive the PyTorch port's BDPT and PT main paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -61,6 +61,27 @@ a zero exit):
        c. 480x360 d5 8 spp after a warm-up pass, and the same for the level-6
           mesh box with the sky attached (env and area light, through K2),
           each with the K1 and K2 launch counts of that run alone.
+  8. the unidirectional path tracer (models/pathtracer.py) and the driver:
+       a. the Cornell box, 120x90 d5 4 spp, through K1 against the same
+          render through the plain version (phase 3a's gates);
+       b. 48x36 d5 8 spp against the JAX package's three PT goldens (the
+          Cornell box, the L6 mesh box through K2, the open env scene with
+          pt_mis);
+       c. the L4 mesh box through K2 against the plain version;
+       d. timed 480x360 d5 renders after a warm-up pass: the Cornell box
+          32 spp, L6 8 spp, the open env scene (pt_mis) 8 spp, L6 with the
+          sky (pt_mis) 8 spp, each with its K1 and K2 launches counted over
+          that run alone and held to d + d x (lights + env) x light_samples
+          a pass;
+       e. BDPT against PT with pt_mis on the open env scene and on the
+          mirror/glass box lit only by the sky, 240x180 d4 8 spp, by the
+          6x6 block rule of tests/test_env_bdpt.py;
+       f. two BDPT renders, of the Cornell box and of L6 with the sky,
+          bitwise equal in the eye and light images; the first pass's
+          splat scatter timed per call (CUDA events) on its own splats,
+          beside an atomic index_add_ of them;
+       g. an adaptive PT render whose sample counts lie in
+          [samples_per_batch, spp], some pixels stopping early.
 
 Kernel times (utils/timing.py): device_ms is the kernel's own duration
 on the device, from torch.profiler's kernel records (or CUDA events
@@ -87,7 +108,8 @@ ray.  K2's any-hit bound counts an occluded segment as one triangle test
 test of every block, of every member cluster of each block it crosses, and
 every filled slot of each cluster it crosses; its closest-hit (walk) bound
 counts the same up to each ray's hit.  library_ms is null: no single
-PyTorch call computes a closest hit.
+PyTorch call computes a closest hit.  The K1 and K2 lines also carry
+pt_launches, the launches of phase 8d's PT run of their cell.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and before that one JSON line
@@ -115,6 +137,8 @@ SHADOW_RAYS = W * H * (DEPTH + 1) * (DEPTH + 1)  # the 36-combo shadow batch
 K2_RAYS = 65536                                # rays per K2 check population
 MESH_LEVEL = 6                                 # 163,852 triangles
 GOLDEN_ENV = os.path.join(GOLDEN_DIR, "envopen_bdpt_48x36_d5_8spp_seed0.npz")
+GOLDEN_PT = {name: os.path.join(GOLDEN_DIR, f"{name}_48x36_d5_8spp_seed0.npz")
+             for name in ("cornell_mg_pt", "meshbox_L6_pt", "envopen_ptmis")}
 K3_CHECK = (4096, 16)                          # rays, visits of the K3 checks
 K3_ITERS = 64                                  # visits of the K3 timing
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 flop/s (no tensor
@@ -695,6 +719,211 @@ def phase7_env(dev, gpu, mesh):
     return detail
 
 
+# --- phase 8: the unidirectional path tracer and the driver ---------------
+
+def pt_launches_per_pass(scene, cfg):
+    """Hit-kernel launches of one PT pass (models/pathtracer.py
+    trace_radiance, not Russian roulette): 1 + (d-1) closest hits, and at
+    each of the d NEE vertices one any hit per (light, light sample) and
+    one per env sample."""
+    from bidirectional_pathtracing_tpu_torch.ops.lights import num_lights
+    d = cfg.max_ray_depth
+    shadow = (num_lights(scene.lights)
+              + (scene.envmap is not None)) * cfg.light_samples
+    return d + d * shadow
+
+
+def phase8_pt(dev, gpu, mesh):
+    """The PT path through K1 and K2 against the plain version and the JAX
+    goldens, timed renders with launch counts, BDPT against PT on env
+    scenes, bitwise-reproducible BDPT renders, adaptive sampling.  Returns
+    (detail dict, {scene: launch record} of the timed runs)."""
+    import torch
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
+    from bidirectional_pathtracing_tpu_torch.ops import (
+        intersect_clustered as icl)
+    from bidirectional_pathtracing_tpu_torch.ops.envlight import build_envmap
+    from bidirectional_pathtracing_tpu_torch.ops.intersect import PLAIN
+    from bidirectional_pathtracing_tpu_torch.scene.build import (
+        attach_accelerator)
+    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+        make_cornell_box, make_mesh_cornell_box, make_open_env_scene,
+        synthetic_sky)
+    from bidirectional_pathtracing_tpu_torch.scene.types import make_lights
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+
+    def pt(**kw):
+        return RenderConfig(**{"integrator": "pt", "max_ray_depth": DEPTH,
+                               "seed": 0, **kw})
+
+    def counted(scene, cfg, **kw):
+        """render() with both kernels' counts set to 0 just before it and
+        read just after."""
+        torch.cuda.synchronize()
+        ib.brute_hit.launches = icl.clustered_hit.launches = 0
+        res = render(scene, cfg, **kw)
+        return res, ib.brute_hit.launches, icl.clustered_hit.launches
+
+    box = make_cornell_box(sphere_materials=("mirror", "glass"), device=dev)
+    env = make_open_env_scene(device=dev)
+    detail = {}
+
+    # 8a: Cornell box through K1 against the plain version
+    cfg4 = pt(spp=4, width=120, height=90)
+    r_k, k1, k2 = counted(box, cfg4)
+    per = pt_launches_per_pass(box, cfg4)
+    check(k1 == 4 * per and k2 == 0, f"phase8a: K1 {k1}, K2 {k2} launches, "
+          f"want {4 * per}, 0")
+    r_p = render(box, cfg4, isect=PLAIN)
+    check(np.isfinite(r_p.combined).all(), "phase8a: non-finite (plain)")
+    detail["phase8a_rel"], detail["phase8a_block"] = render_vs(
+        "phase8a", r_p.combined, r_k.combined, 1e-3, 0.01)
+
+    # 8b: the three PT goldens (the L6 box through K2)
+    for name, scene, kw in (("cornell_mg_pt", box, {}),
+                            ("meshbox_L6_pt", mesh, {}),
+                            ("envopen_ptmis", env, {"pt_mis": True})):
+        ref = np.load(GOLDEN_PT[name])
+        cfg = pt(spp=8, width=48, height=36, **kw)
+        res, k1, k2 = counted(scene, cfg)
+        n = 8 * pt_launches_per_pass(scene, cfg)
+        want = (0, n) if name.startswith("meshbox") else (n, 0)
+        check((k1, k2) == want, f"phase8b {name}: K1 {k1}, K2 {k2} launches, "
+              f"want {want}")
+        rel, blk = render_vs(f"phase8b {name}", ref["combined"],
+                             res.combined, 5e-3, 0.02)
+        detail[f"phase8b_{name}"] = {"rel": rel, "block": blk}
+
+    # 8c: the L4 mesh box through K2 against the plain version
+    mesh4 = attach_accelerator(make_mesh_cornell_box(4, device=dev))
+    m_k, k1, k2 = counted(mesh4, cfg4)
+    check(k2 == 4 * per and k1 == 0, f"phase8c: K1 {k1}, K2 {k2} launches")
+    m_p = render(mesh4, cfg4, isect=PLAIN)
+    detail["phase8c_rel"], detail["phase8c_block"] = render_vs(
+        "phase8c", m_p.combined, m_k.combined, 1e-3, 0.01)
+    print(f"[phase8c] L4 120x90 d5 4spp PT: K2 {m_k.stats['wall_time_s']:.2f}"
+          f" s, plain {m_p.stats['wall_time_s']:.2f} s")
+    del mesh4
+
+    # 8d: timed 480x360 d5 renders after a warm-up pass, launches per pass
+    sky_mesh = mesh._replace(envmap=build_envmap(synthetic_sky(), device=dev))
+    timed = {}
+    for label, scene, spp, kw, route in (
+            ("cornell", box, 32, {}, "brute"),
+            (f"meshbox_L{MESH_LEVEL}", mesh, 8, {}, "clustered"),
+            ("open_env_ptmis", env, 8, {"pt_mis": True}, "brute"),
+            (f"meshbox_L{MESH_LEVEL}_sky", sky_mesh, 8, {}, "clustered")):
+        render(scene, pt(spp=1, width=W, height=H, seed=1, **kw))
+        cfg = pt(spp=spp, width=W, height=H, samples_per_chunk=8, **kw)
+        res, k1, k2 = counted(scene, cfg)
+        per = pt_launches_per_pass(scene, cfg)
+        got = k1 if route == "brute" else k2
+        other = k2 if route == "brute" else k1
+        check(got == spp * per and other == 0,
+              f"phase8d {label}: K1 {k1}, K2 {k2} launches, want "
+              f"{spp * per} through {route}")
+        check(np.isfinite(res.combined).all() and res.combined.mean() > 0,
+              f"phase8d {label}: non-finite or black")
+        check(res.combined.shape == (H, W, 3), f"phase8d {label}: shape")
+        st = res.stats
+        print(f"[phase8d] {label} PT 480x360 d5 {spp}spp: "
+              f"{st['camera_samples_per_s']:.1f} samples/s, "
+              f"{st['mrays_per_s']:.3f} Mrays/s measured ({st['rays']:.0f} "
+              f"rays, {st['wall_time_s']:.3f} s), {route}_hit launches "
+              f"{got} ({per} a pass), frame mean {res.combined.mean():.6f} "
+              f"({gpu})")
+        timed[label] = {"samples_per_s": st["camera_samples_per_s"],
+                        "mrays_per_s": st["mrays_per_s"], "rays": st["rays"],
+                        "wall_s": st["wall_time_s"], "spp": spp,
+                        "launches": got, "launches_per_pass": per,
+                        "frame_mean": float(res.combined.mean())}
+    detail["phase8d"] = timed
+
+    # 8e: BDPT against PT with pt_mis on env scenes, by the block rule of
+    # tests/test_env_bdpt.py (6x6 blocks, |a-b|/(|b|+0.05)): the open env
+    # scene (mean < 0.05, max < 0.25) and the mirror/glass box lit only
+    # through the sky (mean < 0.05), at 240x180 d4 8 spp, more samples a
+    # block than those tests take
+    dark_box = box._replace(
+        lights=make_lights([], device=dev),
+        materials=box.materials._replace(
+            emission=torch.zeros_like(box.materials.emission)),
+        envmap=env.envmap)
+    for label, scene, max_tol in (("open_env", env, 0.25),
+                                  ("specular_sky", dark_box, None)):
+        imgs = {}
+        for integ, pt_mis in (("bdpt", False), ("pt", True)):
+            imgs[integ] = render(scene, RenderConfig(
+                spp=8, max_ray_depth=4, width=240, height=180,
+                integrator=integ, pt_reference_nee=False, pt_mis=pt_mis,
+                seed=0)).combined
+        a = block_err(imgs["pt"], imgs["bdpt"], nb=6)
+        print(f"[phase8e] {label} BDPT vs PT (pt_mis): block err mean "
+              f"{a.mean():.4f} max {a.max():.4f}; BDPT mean "
+              f"{imgs['bdpt'].mean():.5f}, PT mean {imgs['pt'].mean():.5f}")
+        check(a.mean() < 0.05, f"phase8e {label}: block error {a.mean()}")
+        if max_tol is not None:
+            check(a.max() < max_tol, f"phase8e {label}: max {a.max()}")
+        check(imgs["bdpt"].mean() > (0.05 if max_tol else 0.1),
+              f"phase8e {label}: the env does not light the scene")
+        detail[f"phase8e_{label}"] = {"block_mean": float(a.mean()),
+                                      "block_max": float(a.max())}
+
+    # 8f: two BDPT renders, bitwise equal in the eye and light images; the
+    # cost of one pass's splat scatter (models/bdpt.py _splat) on that
+    # pass's own splats, beside an atomic index_add_ of the same splats
+    from bidirectional_pathtracing_tpu_torch.models import bdpt
+    from bidirectional_pathtracing_tpu_torch.utils.timing import call_ms
+    for label, scene, spp in (("cornell", box, 2),
+                              (f"meshbox_L{MESH_LEVEL}_sky", sky_mesh, 1)):
+        cfg = RenderConfig(spp=spp, max_ray_depth=DEPTH, width=W, height=H,
+                           integrator="bdpt", seed=3)
+        captured, splat = [], bdpt._splat
+        bdpt._splat = lambda img, f, v: (captured.append((f, v)),
+                                         splat(img, f, v))[1]
+        try:
+            one = render(scene, cfg)
+        finally:
+            bdpt._splat = splat
+        two = render(scene, cfg)
+        same = all(np.array_equal(getattr(one, k), getattr(two, k))
+                   for k in ("eye", "light"))
+        flat, vals = captured[0]
+        live = ~(vals == 0).all(-1)
+        sort_ms = call_ms(lambda: bdpt._splat(
+            torch.zeros((W * H, 3), device=dev), flat, vals), 20)
+        atomic_ms = call_ms(lambda: torch.zeros(
+            (W * H, 3), device=dev).index_add_(0, flat, vals), 20)
+        rec = {"bitwise_equal": same, "splats": flat.shape[0],
+               "nonzero": int(live.sum()),
+               "max_nonzero_a_pixel": int(torch.bincount(
+                   flat[live], minlength=W * H).max()),
+               "splat_call_ms": sort_ms, "index_add_call_ms": atomic_ms}
+        print(f"[phase8f] {label} BDPT 480x360 d5 {spp}spp twice: eye and "
+              f"light bitwise equal: {same}; light sum "
+              f"{float(one.light.sum()):.6f}; a pass's splat scatter "
+              f"{json.dumps(rec)} ({gpu})")
+        check(same, f"phase8f {label}: two renders differ")
+        check(one.light.sum() > 0, f"phase8f {label}: no splats")
+        detail[f"phase8f_{label}"] = rec
+
+    # 8g: adaptive sampling stops converged pixels early
+    batch, spp = 4, 32
+    res, k1, _ = counted(box, pt(spp=spp, width=120, height=90,
+                                 adaptive_sampling=True,
+                                 samples_per_batch=batch, max_tolerance=0.3))
+    c = res.sample_counts
+    check(c.min() >= batch and c.max() <= spp and c.min() < c.max(),
+          f"phase8g: sample counts in [{c.min()}, {c.max()}]")
+    check(np.isfinite(res.combined).all(), "phase8g: non-finite pixels")
+    detail["phase8g"] = {"counts_min": int(c.min()), "counts_max": int(c.max()),
+                         "counts_mean": float(c.mean()), "k1_launches": k1}
+    print(f"[phase8g] adaptive PT 120x90 spp {spp} batch {batch}: counts "
+          f"{c.min()}-{c.max()}, mean {c.mean():.2f}, K1 launches {k1}")
+    return detail, timed
+
+
 def main() -> int:
     import torch
 
@@ -904,6 +1133,7 @@ def main() -> int:
 
     k3 = phase6_k3(dev, gpu)
     env = phase7_env(dev, gpu, mesh)
+    pt, pt_timed = phase8_pt(dev, gpu, mesh)
 
     # Every kernel: ms is device_ms, the kernel's own time on the device
     # (utils/timing.py; device_source says whether from the profiler or a
@@ -937,6 +1167,8 @@ def main() -> int:
         "bound_ms": k1s["bound"][0],
         "bound_by": k1s["bound"][1],
         "library_ms": None,
+        "pt_launches": pt_timed["cornell"]["launches"],
+        "pt_launches_per_pass": pt_timed["cornell"]["launches_per_pass"],
         "walk_172800_ms": k1w["device_ms"],
         "walk_172800_device_ms": k1w["device_ms"],
         "walk_172800_call_ms": k1w["call_ms"],
@@ -967,6 +1199,9 @@ def main() -> int:
         "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1],
         "library_ms": None,
+        "pt_launches": pt_timed[f"meshbox_L{MESH_LEVEL}"]["launches"],
+        "pt_launches_per_pass":
+            pt_timed[f"meshbox_L{MESH_LEVEL}"]["launches_per_pass"],
     }] + k3["kernels"]}
     detail = {"gpu": gpu, "k1_times": times, "k2_times": k2_times,
               "checks": {"cornell": rep_box, "soup8192": rep_soup,
@@ -986,7 +1221,7 @@ def main() -> int:
                   "samples_per_s": st8s["camera_samples_per_s"],
                   "mrays_per_s": st8s["mrays_per_s"],
                   "wall_s": st8s["wall_time_s"], "vs_default_rel": rel_5s},
-              "k3": k3["detail"], "env": env}
+              "k3": k3["detail"], "env": env, "pt": pt}
     print(f"[detail] {json.dumps(detail)}")
     print(json.dumps(kernels))
     print(gpu_line())

@@ -218,14 +218,21 @@ def test_sample_pass_matches_jax(spheres, min_lanes, mean_tol):
 
 
 def test_outside_the_slice_raises():
-    """The unidirectional PT is not ported (environment lights are, since
-    ROADMAP A7: tests/test_torch_env_bdpt.py)."""
+    """cfg.envmap_path is not read (no EXR reader yet): a render that asks
+    for an env map the scene does not carry raises instead of rendering
+    without it.  Both integrators are ported (the PT since ROADMAP A1:
+    tests/test_torch_pathtracer.py)."""
     from bidirectional_pathtracing_tpu_torch.scene.procedural import (
         make_cornell_box)
     from bidirectional_pathtracing_tpu_torch.utils.render import render
     scene = make_cornell_box(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        render(scene, TConfig(integrator="pt", spp=1, width=4, height=3))
+    for integrator in ("bdpt", "pt"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+            render(scene, TConfig(integrator=integrator, spp=1, width=4,
+                                  height=3, envmap_path="sky.exr"))
+        res = render(scene, TConfig(integrator=integrator, spp=1, width=4,
+                                    height=3))
+        assert res.combined.shape == (3, 4, 3)
 
 
 def test_pdf_area_helpers_match_jax():
@@ -249,3 +256,27 @@ def test_pdf_area_helpers_match_jax():
     b = tb._pdf_area_from(torch.tensor([2.0]), tp.pos[:, 1], tp.pos[:, 2],
                           tp.n[:, 2])
     np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5)
+
+
+def test_splat_sums_in_lane_order_on_cpu():
+    """_splat on the CPU adds serially in lane order (numpy's unbuffered
+    add.at), with heavy collisions, values over six decades, where another
+    order changes the sums, and half the splats zero and piled on one
+    pixel, as masked splats are."""
+    rng = np.random.default_rng(5)
+    n, p = 200_003, 1000
+    flat = rng.integers(0, p, n)
+    flat[rng.uniform(size=n) < 0.25] = 7
+    vals = (rng.uniform(size=(n, 3))
+            * 10.0 ** rng.uniform(-3, 3, (n, 1))).astype(np.float32)
+    masked = rng.uniform(size=n) < 0.5     # zero splats piled on one pixel
+    vals[masked] = 0.0
+    flat[masked] = 3
+    ref = np.zeros((p, 3), np.float32)
+    np.add.at(ref, flat, vals)
+    got = tb._splat(torch.zeros((p, 3)), torch.from_numpy(flat),
+                    torch.from_numpy(vals))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    back = np.zeros((p, 3), np.float32)
+    np.add.at(back, flat[::-1], vals[::-1])
+    assert not np.array_equal(back, ref)

@@ -3,7 +3,10 @@ brute-force kernel (csrc/brute_hit.cu; bitwise), the clustered kernel
 (csrc/clustered_hit.cu) and the K3 microbenchmark kernels
 (csrc/mt_bench.cu; mt_vpu bitwise, mt_linear by the tolerance gate
 ops/mt_bench.py linear_gate); env-lit renders through K1 and K2 against
-the plain version; and the two sources of utils/timing.py device_ms.
+the plain version; the two sources of utils/timing.py device_ms; PT
+renders through K1 and K2 against the plain version, with their launch
+counts; bitwise-reproducible BDPT renders and light-image splats; and
+resume, cell mode, adaptive sampling and autofocus on the card.
 
 Jax-free, so it runs where the card is (that machine has no jax; the
 repo's conftest imports it, so pass --noconftest):
@@ -535,3 +538,132 @@ def test_env_mesh_render_through_clustered_kernel_matches_plain(cuda):
     box = attach_accelerator(make_mesh_cornell_box(4, device=cuda))
     box = box._replace(envmap=build_envmap(synthetic_sky(), device=cuda))
     _env_render_pair(box, icl.clustered_hit)
+
+
+# --- the unidirectional PT and the render driver on the card ---------------
+
+def _sky_mesh(device, level=4):
+    from bidirectional_pathtracing_tpu_torch.ops.envlight import build_envmap
+    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+        synthetic_sky)
+    box = attach_accelerator(make_mesh_cornell_box(level, device=device))
+    return box._replace(envmap=build_envmap(synthetic_sky(), device=device))
+
+
+def _pt_scene(name, device):
+    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+        make_open_env_scene)
+    if name == "cornell":
+        return make_cornell_box(sphere_materials=("mirror", "glass"),
+                                device=device), ib.brute_hit
+    if name == "open_env":
+        return make_open_env_scene(device=device), ib.brute_hit
+    return _sky_mesh(device), icl.clustered_hit
+
+
+@pytest.mark.parametrize("name", ["cornell", "open_env", "meshbox_sky"])
+def test_pt_render_through_kernel_matches_plain(cuda, name):
+    """The PT through K1 (Cornell box, open env scene) or K2 (L4 mesh box
+    with the sky) against the plain version: one closest hit per depth
+    step and one any hit per light and env sample at each of the d NEE
+    vertices, every one through the kernel."""
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+    scene, counter = _pt_scene(name, cuda)
+    cfg = RenderConfig(integrator="pt", spp=2, max_ray_depth=4, width=64,
+                       height=48, pt_mis=scene.envmap is not None)
+    shadow = scene.lights.kind.shape[0] + (scene.envmap is not None)
+    before = counter.launches
+    a = render(scene, cfg)
+    assert counter.launches - before == 2 * 4 * (1 + shadow)
+    b = render(scene, cfg, isect=PLAIN)
+    assert counter.launches - before == 2 * 4 * (1 + shadow)
+    assert a.eye is None and np.isfinite(a.combined).all()
+    assert a.combined.mean() > 0
+    np.testing.assert_allclose(a.combined.mean(), b.combined.mean(),
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["cornell", "meshbox_sky"])
+def test_bdpt_render_is_bitwise_reproducible(cuda, name):
+    """Two BDPT renders of one seed are bitwise equal, the light image's
+    splats included (models/bdpt.py _splat)."""
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+    scene = _sky_mesh(cuda) if name == "meshbox_sky" else make_cornell_box(
+        sphere_materials=("mirror", "glass"), device=cuda)
+    cfg = RenderConfig(spp=2, max_ray_depth=4, width=160, height=120)
+    a, b = render(scene, cfg), render(scene, cfg)
+    assert a.light.sum() > 0
+    np.testing.assert_array_equal(a.eye, b.eye)
+    np.testing.assert_array_equal(a.light, b.light)
+
+
+def test_splat_sums_in_lane_order(cuda):
+    """_splat on the card: the same bits on every call, and those of the
+    sequential CPU scatter (each pixel's splats summed in lane order),
+    with heavy collisions (a quarter of the splats on one pixel), values
+    over six decades, where another order changes the sum, and half the
+    splats zero and piled on another pixel, as masked splats are."""
+    from bidirectional_pathtracing_tpu_torch.models.bdpt import _splat
+    rng = np.random.default_rng(5)
+    n, p = 200_003, 1000
+    flat = rng.integers(0, p, n)
+    flat[rng.uniform(size=n) < 0.25] = 7
+    vals = (rng.uniform(size=(n, 3))
+            * 10.0 ** rng.uniform(-3, 3, (n, 1))).astype(np.float32)
+    masked = rng.uniform(size=n) < 0.5     # zero splats piled on one pixel
+    vals[masked] = 0.0
+    flat[masked] = 3
+    f, v = torch.from_numpy(flat), torch.from_numpy(vals)
+    ref = _splat(torch.zeros((p, 3)), f, v)
+    fc, vc = f.to(cuda), v.to(cuda)
+    one = _splat(torch.zeros((p, 3), device=cuda), fc, vc)
+    two = _splat(torch.zeros((p, 3), device=cuda), fc, vc)
+    assert torch.equal(one, two)
+    assert torch.equal(one.cpu(), ref)
+    reordered = torch.zeros((p, 3)).index_add_(0, f.flip(0), v.flip(0))
+    assert not torch.equal(reordered, ref)      # the order is visible
+
+
+def test_checkpoint_resume_is_bitwise_on_card(cuda, tmp_path):
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+    box = make_cornell_box(device=cuda)
+    cfg = RenderConfig(spp=4, max_ray_depth=3, width=64, height=48)
+    full = render(box, cfg)
+    path = str(tmp_path / "state.npz")
+    render(box, cfg, checkpoint_path=path, checkpoint_every=1)
+    resumed = render(box, cfg, checkpoint_path=path)
+    np.testing.assert_array_equal(resumed.eye, full.eye)
+    np.testing.assert_array_equal(resumed.light, full.light)
+
+
+def test_cell_adaptive_and_autofocus_on_card(cuda):
+    """Cell mode renders only the rect; adaptive sampling stops some
+    pixels early; autofocus through K1 gives the plain version's
+    distance."""
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.utils.render import (
+        autofocus, render)
+    box = make_cornell_box(device=cuda)
+    for integrator in ("pt", "bdpt"):
+        res = render(box, RenderConfig(integrator=integrator, spp=2,
+                                       max_ray_depth=3, width=64, height=48,
+                                       cell=(8, 6, 24, 18)))
+        img = res.eye if integrator == "bdpt" else res.combined
+        mask = np.zeros((48, 64), bool)
+        mask[6:24, 8:32] = True
+        assert img[mask].mean() > 0.01 and img[~mask].max() == 0.0
+        assert (res.sample_counts[mask] == 2).all()
+    res = render(box, RenderConfig(integrator="pt", spp=24, max_ray_depth=2,
+                                   width=64, height=48,
+                                   adaptive_sampling=True,
+                                   samples_per_batch=4, max_tolerance=0.3))
+    c = res.sample_counts
+    assert c.min() >= 4 and c.max() <= 24 and c.min() < c.max()
+    before = ib.brute_hit.launches
+    fd = autofocus(box, 32.0, 24.0, 64, 48)
+    assert ib.brute_hit.launches == before + 1
+    ref = autofocus(make_cornell_box(device="cpu"), 32.0, 24.0, 64, 48)
+    assert 0.1 < fd < 100.0 and abs(fd - ref) <= 1e-6 * ref
