@@ -11,7 +11,10 @@ CPU tensors through their plain torch versions.  tools/mxu_mt_bench.py
 times the clustered kernel's inner loop (csrc/mt_bench.cu).  The renderer's
 randomness is the JAX package's counter-based hash, so both packages draw
 the same samples.  Scenes are built on the card unless the caller names
-another device.
+another device: procedurally (scene/procedural.py) or from COLLADA files
+(scene/build.py load_scene).  `python -m
+bidirectional_pathtracing_tpu_torch.cli scene.dae` renders a file to a
+PNG, as the JAX package's CLI does.
 
 This package never imports jax.
 """

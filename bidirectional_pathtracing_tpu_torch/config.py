@@ -3,11 +3,10 @@
 A copy of bidirectional_pathtracing_tpu/config.py with the same fields and
 defaults: the JAX package cannot be imported without jax.  It mirrors the
 reference AppConfig (reference: src/application/application.h:43-87) plus
-the hard-coded knobs surfaced per SURVEY.md section 5.  Fields the port
-does not read yet keep their names so configs move between the packages
-unchanged: envmap_path (no EXR reader yet; render() raises when it is set
-and the scene has no envmap) and the output fields, which belong to the
-CLI (ROADMAP A4).
+the hard-coded knobs surfaced per SURVEY.md section 5.  Fields that
+render() does not read keep their names so configs move between the
+packages unchanged: envmap_path and the output fields, which cli.py reads
+(render() raises when envmap_path is set and the scene has no envmap).
 """
 
 from __future__ import annotations

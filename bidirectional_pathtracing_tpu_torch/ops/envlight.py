@@ -20,7 +20,8 @@ log2(W) gather steps over the lanes' own rows: a per-lane row gather
 1,024-wide map.  Gathers clamp their indices into the table, as XLA's do;
 that changes nothing for finite directions.
 
-Not ported: save_probability_debug (it needs the PNG writer; ROADMAP A9).
+save_probability_debug writes the JAX package's debug image
+(ops/envlight.py:51-63) from the tables, brought to the host.
 """
 
 from __future__ import annotations
@@ -54,6 +55,22 @@ def build_envmap(data, device="cuda") -> Envmap:
     return Envmap(data=conv(data), pdf=conv(pdf),
                   marginal_cdf=conv(marginal_cdf),
                   conditional_cdf=conv(conds))
+
+
+def save_probability_debug(env: Envmap, path: str = "probability_debug.png"):
+    """EnvironmentLight::save_probability_debug (environment_light.cpp:66-81):
+    per-pixel debug PNG with R = marginal row CDF, G = conditional column
+    CDF, B = 0, alpha = 255; the JAX package's float64 maths on the
+    tables' float32 values."""
+    from bidirectional_pathtracing_tpu_torch.utils.png import write_png
+    m = env.marginal_cdf.cpu().numpy().astype(np.float64)
+    c = env.conditional_cdf.cpu().numpy().astype(np.float64)
+    h, w = c.shape
+    img = np.zeros((h, w, 4), np.uint8)
+    img[..., 0] = np.clip(255.0 * m[:, None], 0, 255).astype(np.uint8)
+    img[..., 1] = np.clip(255.0 * c, 0, 255).astype(np.uint8)
+    img[..., 3] = 255
+    write_png(path, img)
 
 
 def searchsorted_right(table, row, q):

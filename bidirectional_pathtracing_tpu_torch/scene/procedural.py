@@ -249,3 +249,125 @@ def make_open_env_scene(device="cuda") -> Scene:
                  lights=make_lights([], device=device),
                  camera=_camera(camera, device),
                  envmap=build_envmap(synthetic_sky(), device=device))
+
+
+def _floats_text(values) -> str:
+    """Space-separated floats that parse back to the same float64s."""
+    return " ".join(repr(float(v)) for v in np.asarray(values).reshape(-1))
+
+
+def _effect_xml(rec: dict) -> str:
+    """A COLLADA effect for a material record, in the form the loader
+    (scene/collada.py parse_material) reads: phong diffuse for
+    MAT_DIFFUSE, the CGL technique for the rest."""
+    if rec["kind"] == MAT_DIFFUSE:
+        return ("<profile_COMMON><technique sid=\"common\"><phong><diffuse>"
+                f"<color>{_floats_text(rec['albedo'])} 1.0</color>"
+                "</diffuse></phong></technique></profile_COMMON>")
+    tags = {MAT_EMISSION: ("emission", ("radiance", "emission")),
+            MAT_MIRROR: ("mirror", ("reflectance", "reflectance")),
+            MAT_GLASS: ("glass", ("transmittance", "transmittance"),
+                        ("reflectance", "reflectance"), ("ior", "ior")),
+            MAT_MICROFACET: ("microfacet", ("alpha", "roughness"),
+                             ("eta", "eta"), ("k", "k"))}[rec["kind"]]
+    body = "".join(f"<{tag}>{_floats_text(rec[key])}</{tag}>"
+                   for tag, key in tags[1:])
+    return (f"<extra><technique profile=\"CGL\"><{tags[0]}>{body}"
+            f"</{tags[0]}></technique></extra>")
+
+
+def write_cornell_box_dae(path: str, sphere_level: int,
+                          sphere_materials=("mirror", "glass")) -> None:
+    """Write the mesh Cornell box of make_mesh_cornell_box as a COLLADA
+    file for scene/build.py load_scene: each wall and the light quad a
+    lone quad in a <polylist> (wound so that the loader's boundary-walk
+    normal flip points it into the box), the two icosphere meshes of
+    20 * 4**sphere_level faces as <triangles> in world coordinates, one
+    effect per material record (phong diffuse, CGL emission / mirror /
+    glass), the ceiling light as a node with the CGL <area> technique and a
+    <matrix>, and the camera as a node with a <matrix>.  Vertices are
+    written as repr() floats, so the loaded triangles equal the float64
+    values cast to float32 that mesh_cornell_box_arrays holds."""
+    tris, norms, mats, materials, lights, camera = _box_records()
+    unit, faces = icosphere(sphere_level)
+    meshes = []                  # (name, vertices [V,3], polygons, mat id)
+    for k in range(0, len(tris), 2):
+        p0, p1, p2 = (np.asarray(v, np.float64) for v in tris[k])
+        quad = [p0, p1, p2, np.asarray(tris[k + 1][2], np.float64)]
+        if np.dot(np.cross(p1 - p0, p2 - p0), norms[k][0]) > 0:
+            quad = quad[::-1]
+        meshes.append((f"quad{k // 2}", np.array(quad), [[0, 1, 2, 3]],
+                       mats[k]))
+    for i, (c, r, name) in enumerate(zip(_SPH_C, _SPH_R, sphere_materials)):
+        meshes.append((f"sphere{i}", np.asarray(c, np.float64) + r * unit,
+                       faces.tolist(), _MAT_NAME_TO_ID[name]))
+
+    effects = "".join(f"<effect id=\"fx{i}\">{_effect_xml(rec)}</effect>"
+                      for i, rec in enumerate(materials))
+    mat_lib = "".join(f"<material id=\"mat{i}\" name=\"mat{i}\">"
+                      f"<instance_effect url=\"#fx{i}\"/></material>"
+                      for i in range(len(materials)))
+    geoms, nodes = [], []
+    for name, verts, polys, mid in meshes:
+        idx = " ".join(str(int(v)) for p in polys for v in p)
+        src = (f"<source id=\"{name}-pos\"><float_array id=\"{name}-arr\" "
+               f"count=\"{verts.size}\">{_floats_text(verts)}</float_array>"
+               "</source>"
+               f"<vertices id=\"{name}-vtx\"><input semantic=\"POSITION\" "
+               f"source=\"#{name}-pos\"/></vertices>")
+        vin = f"<input semantic=\"VERTEX\" source=\"#{name}-vtx\" offset=\"0\"/>"
+        if name.startswith("quad"):
+            prim = (f"<polylist count=\"{len(polys)}\">{vin}<vcount>"
+                    + " ".join(str(len(p)) for p in polys)
+                    + f"</vcount><p>{idx}</p></polylist>")
+        else:
+            prim = f"<triangles count=\"{len(polys)}\">{vin}<p>{idx}</p></triangles>"
+        geoms.append(f"<geometry id=\"{name}\" name=\"{name}\"><mesh>{src}"
+                     f"{prim}</mesh></geometry>")
+        nodes.append(f"<node id=\"n-{name}\" name=\"{name}\">"
+                     f"<instance_geometry url=\"#{name}\"><bind_material>"
+                     "<technique_common><instance_material symbol=\"m\" "
+                     f"target=\"#mat{mid}\"/></technique_common>"
+                     "</bind_material></instance_geometry></node>")
+    # the area light: position = T(0,0,0), direction = T(0,0,-1) - position,
+    # dim_x = T(-1,0,0) - position, dim_y = T(0,1,0) - position
+    # (scene/build.py _build_light)
+    lt = lights[0]
+    m = np.eye(4)
+    m[:3, 0] = -np.asarray(lt["dim_x"], np.float64)
+    m[:3, 1] = lt["dim_y"]
+    m[:3, 2] = -np.asarray(lt["direction"], np.float64)
+    m[:3, 3] = lt["position"]
+    nodes.append("<node id=\"n-light\" name=\"light\">"
+                 f"<matrix>{_floats_text(m)}</matrix>"
+                 "<instance_light url=\"#light\"/></node>")
+    cam = np.eye(4)
+    cam[:3, :3] = camera["c2w"]
+    cam[:3, 3] = camera["pos"]
+    nodes.append("<node id=\"n-camera\" name=\"camera\">"
+                 f"<matrix>{_floats_text(cam)}</matrix>"
+                 "<instance_camera url=\"#camera\"/></node>")
+    xml = (
+        "<?xml version=\"1.0\" encoding=\"utf-8\"?>\n"
+        "<COLLADA xmlns=\"http://www.collada.org/2005/11/COLLADASchema\" "
+        "version=\"1.4.1\">\n"
+        "<asset><up_axis>Y_UP</up_axis></asset>\n"
+        "<library_cameras><camera id=\"camera\"><optics><technique_common>"
+        f"<perspective><xfov>{float(camera['hfov'])!r}</xfov>"
+        f"<yfov>{float(camera['vfov'])!r}</yfov>"
+        f"<znear>{float(camera['nclip'])!r}</znear>"
+        f"<zfar>{float(camera['fclip'])!r}</zfar></perspective>"
+        "</technique_common></optics></camera></library_cameras>\n"
+        "<library_lights><light id=\"light\"><extra><technique "
+        f"profile=\"CGL\"><area><color>{_floats_text(lt['radiance'])}"
+        "</color></area></technique></extra></light></library_lights>\n"
+        f"<library_effects>{effects}</library_effects>\n"
+        f"<library_materials>{mat_lib}</library_materials>\n"
+        "<library_geometries>\n" + "\n".join(geoms)
+        + "\n</library_geometries>\n"
+        "<library_visual_scenes><visual_scene id=\"scene\">\n"
+        + "\n".join(nodes) + "\n</visual_scene></library_visual_scenes>\n"
+        "<scene><instance_visual_scene url=\"#scene\"/></scene>\n"
+        "</COLLADA>\n")
+    with open(path, "w") as f:
+        f.write(xml)

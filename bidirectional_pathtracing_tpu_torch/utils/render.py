@@ -24,9 +24,11 @@ Implements, as the JAX driver does:
     (raytraced_renderer.cpp:677-683).
 
 Not ported: the JAX package's AOT warm start (utils/aot.py; the port has
-no traced render step to persist) and reading cfg.envmap_path, which waits for
-the EXR reader (ROADMAP A4): attach the envmap to the scene
-(ops/envlight.py build_envmap).
+no traced render step to persist).  As in the JAX package, render() does
+not read cfg.envmap_path: the caller attaches the envmap to the scene, as
+cli.py does (utils/exr.py read_exr, then ops/envlight.py build_envmap).
+Where the path is set and the scene carries no envmap, render() raises
+instead of rendering without it.
 """
 
 from __future__ import annotations
@@ -177,9 +179,9 @@ def render(scene: Scene, cfg: RenderConfig, seed: Optional[int] = None,
 
     if cfg.envmap_path and scene.envmap is None:
         raise NotImplementedError(
-            "cfg.envmap_path is not read: the port has no EXR reader yet "
-            "(ROADMAP A4); attach ops/envlight.py build_envmap(image) as "
-            "scene.envmap")
+            "render() does not read cfg.envmap_path: load it with "
+            "utils/exr.py read_exr and attach ops/envlight.py "
+            "build_envmap(image) as scene.envmap, as cli.py does")
     w, h = cfg.width, cfg.height
     the_seed = cfg.seed if seed is None else seed
     key = rng.key(the_seed)

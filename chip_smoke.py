@@ -82,6 +82,22 @@ a zero exit):
           beside an atomic index_add_ of them;
        g. an adaptive PT render whose sample counts lie in
           [samples_per_batch, spp], some pixels stopping early.
+  9. the command-line renderer (cli.py main, in-process, on the card) on
+     COLLADA files, each run's K1 and K2 launches counted over it alone:
+       a. the mesh box written as a .dae file (scene/procedural.py
+          write_cornell_box_dae, icospheres of 5,120 faces) and loaded with
+          --upsample 2: 164,032 triangles, clusters attached, 480x360 d5
+          8 spp BDPT through K2 (11 launches a pass, none of K1); the load's
+          seconds by part (parse, mesh ops, flattening, cluster build,
+          upload), the render's samples/s and measured Mrays/s;
+       b. the same with -e: the synthetic sky written by utils/exr.py
+          write_exr and read back by the CLI (--envmap-debug's image equal
+          to the sky's own), 18 K2 launches a pass;
+       c. the same under --integrator pt, 10 K2 launches a pass;
+       d. tests/golden/torch_port/cbox_spheres.dae at 48x36 d5 8 spp
+          through K1 against the JAX package's golden (phase 8b's rule),
+          its camera dumped with --dump-camera;
+       e. the same render from that camera file (-c), bitwise equal.
 
 Kernel times (utils/timing.py): device_ms is the kernel's own duration
 on the device, from torch.profiler's kernel records (or CUDA events
@@ -109,7 +125,8 @@ test of every block, of every member cluster of each block it crosses, and
 every filled slot of each cluster it crosses; its closest-hit (walk) bound
 counts the same up to each ray's hit.  library_ms is null: no single
 PyTorch call computes a closest hit.  The K1 and K2 lines also carry
-pt_launches, the launches of phase 8d's PT run of their cell.
+pt_launches, the launches of phase 8d's PT run of their cell, and
+cli_launches, those of phase 9's runs.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and before that one JSON line
@@ -141,6 +158,10 @@ GOLDEN_PT = {name: os.path.join(GOLDEN_DIR, f"{name}_48x36_d5_8spp_seed0.npz")
              for name in ("cornell_mg_pt", "meshbox_L6_pt", "envopen_ptmis")}
 K3_CHECK = (4096, 16)                          # rays, visits of the K3 checks
 K3_ITERS = 64                                  # visits of the K3 timing
+DAE_FIXTURE = os.path.join(GOLDEN_DIR, "cbox_spheres.dae")
+GOLDEN_DAE = os.path.join(GOLDEN_DIR,
+                          "dae_cbox_spheres_bdpt_48x36_d5_8spp_seed0.npz")
+DAE_LEVEL = 4                                  # icospheres of the 9a file
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 flop/s (no tensor
 # cores), dense TF32 tensor-core flop/s; the per-test operation counts of
 # the bounds
@@ -924,6 +945,135 @@ def phase8_pt(dev, gpu, mesh):
     return detail, timed
 
 
+# --- phase 9: the command-line renderer on .dae files ---------------------
+
+BDPT_PER_PASS = {"area": 11, "area+env": 18}   # K1/K2 launches of a d5 pass
+PT_PER_PASS = 10
+UPSAMPLED_TRIS = 6 * 2 * 16 + 2 * 20 * 4 ** (DAE_LEVEL + 2)   # 164,032
+
+
+def phase9_cli(gpu):
+    """The port's cli.main in-process on COLLADA files: the mesh box
+    written at level 4 and subdivided twice by --upsample 2 (about 164k
+    triangles, K2) under BDPT (9a), with the sky from an EXR (9b) and under
+    the PT (9c); the checked-in cbox_spheres.dae against its JAX golden
+    (9d, K1); a camera file dumped and loaded back (9e).  Each run's
+    launches are counted over that run alone.  Returns (detail,
+    {run: launch record})."""
+    import tempfile
+
+    import torch
+    from bidirectional_pathtracing_tpu_torch import cli
+    from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
+    from bidirectional_pathtracing_tpu_torch.ops import (
+        intersect_clustered as icl)
+    from bidirectional_pathtracing_tpu_torch.ops.envlight import (
+        build_envmap, save_probability_debug)
+    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+        synthetic_sky, write_cornell_box_dae)
+    from bidirectional_pathtracing_tpu_torch.utils import render as render_mod
+    from bidirectional_pathtracing_tpu_torch.utils.exr import write_exr
+    from bidirectional_pathtracing_tpu_torch.utils.png import read_png
+
+    detail, launches = {}, {}
+
+    def run(label, argv):
+        """cli.main(argv) with the launches counted over it alone and the
+        scene and RenderResult that reached render() kept."""
+        seen, orig = [], render_mod.render
+
+        def recording(scene, cfg, **kw):
+            res = orig(scene, cfg, **kw)
+            seen.append((scene, res))
+            return res
+
+        out = os.path.join(tmp, f"{label}.png")
+        stats = os.path.join(tmp, f"{label}.json")
+        torch.cuda.synchronize()
+        ib.brute_hit.launches = icl.clustered_hit.launches = 0
+        render_mod.render = recording
+        t0 = time.perf_counter()
+        try:
+            cli.main(argv + ["-f", out, "--stats-json", stats])
+        finally:
+            render_mod.render = orig
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2 = ib.brute_hit.launches, icl.clustered_hit.launches
+        check(len(seen) == 1, f"phase9 {label}: {len(seen)} renders")
+        scene, res = seen[0]
+        with open(stats) as f:
+            st = json.load(f)
+        png = read_png(out)
+        w, h = (int(v) for v in argv[argv.index("-r") + 1:][:2])
+        spp = int(argv[argv.index("-s") + 1])
+        check(np.isfinite(res.combined).all(), f"phase9 {label}: non-finite")
+        check(png.shape == (h, w, 4), f"phase9 {label}: png {png.shape}")
+        check(png[..., :3].mean() > 5 and res.combined.mean() > 0.01,
+              f"phase9 {label}: black image")
+        check(os.path.exists(out[:-4] + "_rate.png"),
+              f"phase9 {label}: no rate image")
+        check(st["camera_samples"] == w * h * spp,
+              f"phase9 {label}: {st['camera_samples']} camera samples")
+        rec = {"k1": k1, "k2": k2, "num_tris": scene.geometry.num_tris,
+               "clusters": scene.clusters is not None,
+               "load_s": st["load_s"], "load_seconds": st["load_seconds"],
+               "render_s": st["wall_time_s"],
+               "samples_per_s": st["camera_samples_per_s"],
+               "mrays_per_s": st["mrays_per_s"], "cli_s": wall,
+               "frame_mean": float(res.combined.mean())}
+        print(f"[phase9] {label}: {json.dumps(rec)} ({gpu})")
+        detail[label], launches[label] = rec, (k1, k2)
+        return scene, res
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        dae = os.path.join(tmp, f"cbox_L{DAE_LEVEL}.dae")
+        write_cornell_box_dae(dae, DAE_LEVEL)
+        big = [dae, "-r", str(W), str(H), "-m", str(DEPTH), "-s", "8",
+               "--upsample", "2"]
+        # 9a: BDPT at full width through K2
+        scene, _ = run("9a_bdpt", big)
+        check(scene.clusters is not None, "phase9a: no clusters attached")
+        check(scene.geometry.num_tris == UPSAMPLED_TRIS,
+              f"phase9a: {scene.geometry.num_tris} triangles")
+        check(launches["9a_bdpt"] == (0, 8 * BDPT_PER_PASS["area"]),
+              f"phase9a: K1, K2 launches {launches['9a_bdpt']}")
+        # 9b: the sky through an EXR file, read back by the CLI
+        sky = os.path.join(tmp, "sky.exr")
+        write_exr(sky, synthetic_sky())
+        run("9b_env", big + ["-e", sky, "--envmap-debug"])
+        check(launches["9b_env"] == (0, 8 * BDPT_PER_PASS["area+env"]),
+              f"phase9b: K1, K2 launches {launches['9b_env']}")
+        dbg = os.path.join(tmp, "probability_debug.png")
+        check(read_png(dbg).shape == (32, 64, 4), "phase9b: debug image")
+        ref_dbg = os.path.join(tmp, "probability_ref.png")
+        save_probability_debug(build_envmap(synthetic_sky(), device="cpu"),
+                               ref_dbg)
+        with open(dbg, "rb") as a, open(ref_dbg, "rb") as b:
+            check(a.read() == b.read(), "phase9b: the EXR did not read back "
+                  "to the sky's tables")
+        # 9c: the unidirectional PT
+        run("9c_pt", big + ["--integrator", "pt"])
+        check(launches["9c_pt"] == (0, 8 * PT_PER_PASS),
+              f"phase9c: K1, K2 launches {launches['9c_pt']}")
+        # 9d: the checked-in fixture through K1 against its JAX golden
+        small = [DAE_FIXTURE, "-r", "48", "36", "-m", str(DEPTH), "-s", "8"]
+        cam = os.path.join(tmp, "cam.txt")
+        _, r_d = run("9d_golden", small + ["--dump-camera", cam])
+        check(launches["9d_golden"] == (8 * BDPT_PER_PASS["area"], 0),
+              f"phase9d: K1, K2 launches {launches['9d_golden']}")
+        ref = np.load(GOLDEN_DAE)
+        detail["9d_rel"], detail["9d_block"] = render_vs(
+            "phase9d", ref["eye"] + ref["light"], r_d.combined, 5e-3, 0.02)
+        # 9e: the dumped camera loaded back renders the same image
+        _, r_e = run("9e_camera", small + ["-c", cam])
+        same = all(np.array_equal(getattr(r_d, k), getattr(r_e, k))
+                   for k in ("eye", "light"))
+        check(same, "phase9e: the render from the camera file differs")
+        detail["9e_bitwise_equal"] = same
+    return detail, launches
+
+
 def main() -> int:
     import torch
 
@@ -1134,6 +1284,8 @@ def main() -> int:
     k3 = phase6_k3(dev, gpu)
     env = phase7_env(dev, gpu, mesh)
     pt, pt_timed = phase8_pt(dev, gpu, mesh)
+    del mesh
+    cli, cli_launches = phase9_cli(gpu)
 
     # Every kernel: ms is device_ms, the kernel's own time on the device
     # (utils/timing.py; device_source says whether from the profiler or a
@@ -1169,6 +1321,7 @@ def main() -> int:
         "library_ms": None,
         "pt_launches": pt_timed["cornell"]["launches"],
         "pt_launches_per_pass": pt_timed["cornell"]["launches_per_pass"],
+        "cli_launches": {"9d_golden": cli_launches["9d_golden"][0]},
         "walk_172800_ms": k1w["device_ms"],
         "walk_172800_device_ms": k1w["device_ms"],
         "walk_172800_call_ms": k1w["call_ms"],
@@ -1202,6 +1355,8 @@ def main() -> int:
         "pt_launches": pt_timed[f"meshbox_L{MESH_LEVEL}"]["launches"],
         "pt_launches_per_pass":
             pt_timed[f"meshbox_L{MESH_LEVEL}"]["launches_per_pass"],
+        "cli_launches": {k: cli_launches[k][1]
+                         for k in ("9a_bdpt", "9b_env", "9c_pt")},
     }] + k3["kernels"]}
     detail = {"gpu": gpu, "k1_times": times, "k2_times": k2_times,
               "checks": {"cornell": rep_box, "soup8192": rep_soup,
@@ -1221,7 +1376,7 @@ def main() -> int:
                   "samples_per_s": st8s["camera_samples_per_s"],
                   "mrays_per_s": st8s["mrays_per_s"],
                   "wall_s": st8s["wall_time_s"], "vs_default_rel": rel_5s},
-              "k3": k3["detail"], "env": env, "pt": pt}
+              "k3": k3["detail"], "env": env, "pt": pt, "cli": cli}
     print(f"[detail] {json.dumps(detail)}")
     print(json.dumps(kernels))
     print(gpu_line())

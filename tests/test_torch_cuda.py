@@ -6,7 +6,8 @@ ops/mt_bench.py linear_gate); env-lit renders through K1 and K2 against
 the plain version; the two sources of utils/timing.py device_ms; PT
 renders through K1 and K2 against the plain version, with their launch
 counts; bitwise-reproducible BDPT renders and light-image splats; and
-resume, cell mode, adaptive sampling and autofocus on the card.
+resume, cell mode, adaptive sampling and autofocus on the card; the CLI
+on a .dae file through K1.
 
 Jax-free, so it runs where the card is (that machine has no jax; the
 repo's conftest imports it, so pass --noconftest):
@@ -667,3 +668,30 @@ def test_cell_adaptive_and_autofocus_on_card(cuda):
     assert ib.brute_hit.launches == before + 1
     ref = autofocus(make_cornell_box(device="cpu"), 32.0, 24.0, 64, 48)
     assert 0.1 < fd < 100.0 and abs(fd - ref) <= 1e-6 * ref
+
+
+def test_cli_renders_dae_on_card(cuda, tmp_path):
+    """The CLI with its default device on tests/golden/torch_port/
+    cbox_spheres.dae: every hit goes through K1 (12 triangles, 2 spheres),
+    the files are written, and the image is within 1 LSB mean of the same
+    command's CPU render (the plain versions)."""
+    import json
+    import os
+    from bidirectional_pathtracing_tpu_torch import cli
+    from bidirectional_pathtracing_tpu_torch.utils.png import read_png
+    scene = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "golden", "torch_port", "cbox_spheres.dae")
+    argv = [scene, "-r", "48", "36", "-m", "5", "-s", "8"]
+    ib.brute_hit.launches = icl.clustered_hit.launches = 0
+    cli.main(argv + ["-f", str(tmp_path / "card.png"), "--stats-json",
+                     str(tmp_path / "card.json")])
+    assert ib.brute_hit.launches > 0 and icl.clustered_hit.launches == 0
+    cli.main(argv + ["-f", str(tmp_path / "cpu.png"), "--device", "cpu"])
+    assert {"card.png", "card_rate.png", "cpu.png"} <= set(
+        os.listdir(tmp_path))
+    st = json.loads((tmp_path / "card.json").read_text())
+    assert st["device"] == "cuda:0" and st["camera_samples"] == 48 * 36 * 8
+    a = read_png(str(tmp_path / "card.png")).astype(int)
+    b = read_png(str(tmp_path / "cpu.png")).astype(int)
+    assert a.shape == (36, 48, 4) and a[..., :3].mean() > 10
+    assert np.abs(a - b).mean() <= 1.0, np.abs(a - b).mean()

@@ -13,12 +13,15 @@ tests/golden/torch_port/ holds JAX package renders at 48x36, depth 5,
     (on the CPU the JAX package walks its BVH);
   - envopen_*: the open env scene
     (examples/inverse_rendering.py `_open_scene`) lit only by the port's
-    synthetic sky (scene/procedural.py synthetic_sky).
+    synthetic sky (scene/procedural.py synthetic_sky);
+  - dae_cbox_spheres_*: tests/golden/torch_port/cbox_spheres.dae as the
+    JAX package's scene/build.py load_scene builds it at 48x36.
 
 chip_smoke.py holds the port's renders on the card against all six
-files.  The Cornell box (both integrators) and the open env scene (BDPT)
-are rendered against their goldens here too: the port's CPU render of the
-163,852-triangle box goes
+files (the .dae one through the port's CLI).  The Cornell box (both
+integrators), the open env scene (BDPT) and the .dae scene (BDPT, loaded by
+the port's load_scene) are rendered against their goldens here too: the
+port's CPU render of the 163,852-triangle box goes
 through the plain clustered hit, which tests every ray against every
 triangle, and takes far too long for the CPU tests.
 
@@ -44,18 +47,21 @@ GOLDENS = {"cornell": "cornell_mg_bdpt_48x36_d5_8spp_seed0.npz",
            "envopen": "envopen_bdpt_48x36_d5_8spp_seed0.npz",
            "cornell_pt": "cornell_mg_pt_48x36_d5_8spp_seed0.npz",
            "meshbox_pt": "meshbox_L6_pt_48x36_d5_8spp_seed0.npz",
-           "envopen_ptmis": "envopen_ptmis_48x36_d5_8spp_seed0.npz"}
+           "envopen_ptmis": "envopen_ptmis_48x36_d5_8spp_seed0.npz",
+           "dae": "dae_cbox_spheres_bdpt_48x36_d5_8spp_seed0.npz"}
 # the render settings of each golden beyond SETTINGS
 GOLDEN_CFG = {"cornell": dict(integrator="bdpt"),
               "meshbox": dict(integrator="bdpt"),
               "envopen": dict(integrator="bdpt"),
               "cornell_pt": dict(integrator="pt"),
               "meshbox_pt": dict(integrator="pt"),
-              "envopen_ptmis": dict(integrator="pt", pt_mis=True)}
+              "envopen_ptmis": dict(integrator="pt", pt_mis=True),
+              "dae": dict(integrator="bdpt")}
 GOLDEN = os.path.join(GOLDEN_DIR, GOLDENS["cornell"])
 SETTINGS = dict(spp=8, max_ray_depth=5, width=48, height=36, seed=0)
 SPHERES = ("mirror", "glass")
 MESH_LEVEL = 6
+DAE_SCENE = os.path.join(GOLDEN_DIR, "cbox_spheres.dae")
 
 
 def block_err(ref, mine, nb=8, floor=0.05):
@@ -70,6 +76,10 @@ def block_err(ref, mine, nb=8, floor=0.05):
 def _jax_scene(name):
     """The JAX package's scene of golden `name`."""
     name = name.split("_")[0]
+    if name == "dae":
+        from bidirectional_pathtracing_tpu.scene.build import load_scene
+        return load_scene(DAE_SCENE, SETTINGS["width"],
+                          SETTINGS["height"])[0]
     if name == "cornell":
         from bidirectional_pathtracing_tpu.scene.procedural import (
             make_cornell_box)
@@ -176,6 +186,25 @@ def test_port_cpu_pt_render_matches_jax_golden():
     scene = make_cornell_box(sphere_materials=SPHERES, device="cpu")
     res = render(scene, RenderConfig(**GOLDEN_CFG["cornell_pt"], **SETTINGS))
     assert res.eye is None and res.combined.shape == ref_c.shape
+    rel = abs(res.combined.mean() - ref_c.mean()) / ref_c.mean()
+    assert rel <= 5e-3, rel
+    err = block_err(ref_c, res.combined)
+    assert err.mean() <= 0.02, (err.mean(), err.max())
+    assert abs(res.stats["rays"] - ref_rays) <= 1e-3 * ref_rays, \
+        (res.stats["rays"], ref_rays)
+
+
+def test_port_cpu_dae_render_matches_jax_golden():
+    """cbox_spheres.dae loaded by the port's load_scene and rendered on the
+    CPU (BDPT) against the JAX package's render of its own load, with the
+    bounds of the goldens above."""
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.scene.build import load_scene
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+    ref_c, ref_rays = golden_image("dae")
+    scene, _ = load_scene(DAE_SCENE, SETTINGS["width"], SETTINGS["height"],
+                          device="cpu")
+    res = render(scene, RenderConfig(**GOLDEN_CFG["dae"], **SETTINGS))
     rel = abs(res.combined.mean() - ref_c.mean()) / ref_c.mean()
     assert rel <= 5e-3, rel
     err = block_err(ref_c, res.combined)
