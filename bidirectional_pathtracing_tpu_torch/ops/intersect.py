@@ -24,8 +24,17 @@ brute-force kernel (ops/intersect_brute.py) on CUDA tensors and the plain
 versions on CPU tensors.  SORTED is the JAX package's sorted clustered
 dispatch (a ray sort before each clustered launch); it gives the same
 results and is not the default, because on an H100 its plain-torch shadow
-key costs far more than the sort saves the kernel.  Hits are not
-differentiable.
+key costs far more than the sort saves the kernel.
+
+Hits carry no gradient, on either route.  No parameter the renders
+differentiate (material albedo and emission, light radiance, the envmap's
+data: models/bdpt.py, models/pathtracer.py) reaches a ray or its window,
+so a closest hit or an any hit needs none, and the kernels have no
+backward, as the JAX package's Pallas kernels have none.  The plain
+versions are torch ops and would carry a gradient through t if a ray
+required grad; the kernels cannot.  So the kernel wrappers refuse rays and
+windows that require grad (refuse_grad) rather than return a t that is
+silently detached.
 """
 
 from __future__ import annotations
@@ -73,6 +82,17 @@ def _window(x, r_count: int, like):
     """Broadcast a scalar or [R] window bound to a [R] tensor."""
     return torch.as_tensor(x, dtype=like.dtype, device=like.device).expand(
         r_count)
+
+
+def refuse_grad(kernel: str, **tensors):
+    """Raises where one of the named ray tensors (o, d, min_t, max_t)
+    requires grad: `kernel` returns no gradient for it."""
+    for name, x in tensors.items():
+        if isinstance(x, torch.Tensor) and x.requires_grad:
+            raise RuntimeError(
+                f"{kernel}: {name} requires grad, but hits carry no "
+                "gradient (ops/intersect.py): detach the rays, or go "
+                "through PLAIN, whose torch ops differentiate t")
 
 
 def tri_intersect_batch(o, d, p0, p1, p2, min_t, max_t):

@@ -9,7 +9,8 @@ miss, num_tris + q for sphere q).  brute_hit is the wrapper:
   - for CPU tensors it returns the plain version, brute_hit_plain (the
     chunked torch `intersect` of ops/intersect.py read as (t, prim));
   - for CUDA tensors it launches the kernel or raises.  There is no
-    fallback.
+    fallback.  It raises on rays or windows that require grad: the
+    kernel has no backward (ops/intersect.py refuse_grad).
 
 brute_hit.launches counts the kernel launches of this process.  The
 kernel's [T, 9] / [Q, 5] tables are built once per geometry, with a host
@@ -32,7 +33,7 @@ from bidirectional_pathtracing_tpu_torch.core.math import INF_D
 from bidirectional_pathtracing_tpu_torch.ops import _build
 from bidirectional_pathtracing_tpu_torch.ops._memo import last_of
 from bidirectional_pathtracing_tpu_torch.ops.intersect import (
-    Hit, _cross3, _dot3, _unit, _window, intersect)
+    Hit, _cross3, _dot3, _unit, _window, intersect, refuse_grad)
 from bidirectional_pathtracing_tpu_torch.scene.types import Geometry
 
 _KERNEL = "brute_hit"
@@ -103,6 +104,7 @@ param_caps.caps = None
 
 
 def _launch(geom: Geometry, o, d, min_t, max_t):
+    refuse_grad("brute_hit", o=o, d=d, min_t=min_t, max_t=max_t)
     r = o.shape[0]
     dev = o.device
     if o.dtype != torch.float32 or d.dtype != torch.float32:

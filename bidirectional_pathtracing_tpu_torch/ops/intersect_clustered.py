@@ -12,7 +12,8 @@ triangle through clusters.pad2global.
     Möller–Trumbore of every ray against every filled slot of the table,
     in slot order (no culling);
   - for CUDA tensors it launches the kernel or raises.  There is no
-    fallback.
+    fallback.  It raises on rays or windows that require grad: the
+    kernel has no backward (ops/intersect.py refuse_grad).
 
 clustered_hit.launches counts the kernel launches of this process.
 
@@ -41,7 +42,7 @@ from bidirectional_pathtracing_tpu_torch.core.math import INF_D
 from bidirectional_pathtracing_tpu_torch.ops import _build
 from bidirectional_pathtracing_tpu_torch.ops.intersect import (
     Hit, _cross3, _dot3, _ray_slices, _unit, _window, sphere_intersect_batch,
-    sphere_merge, tri_intersect_batch)
+    refuse_grad, sphere_merge, tri_intersect_batch)
 from bidirectional_pathtracing_tpu_torch.scene.clusters import (
     CLUSTER_SIZE, ClusteredTris)
 
@@ -115,6 +116,7 @@ def _kernel():
 
 
 def _launch(clusters: ClusteredTris, o, d, min_t, max_t, any_hit: bool):
+    refuse_grad("clustered_hit", o=o, d=d, min_t=min_t, max_t=max_t)
     r = o.shape[0]
     dev = o.device
     if o.dtype != torch.float32 or d.dtype != torch.float32:

@@ -98,6 +98,36 @@ a zero exit):
           through K1 against the JAX package's golden (phase 8b's rule),
           its camera dumped with --dump-camera;
        e. the same render from that camera file (-c), bitwise equal.
+ 10. gradients (utils/gradcheck.py) of mean(eye) + mean(light) of one
+     480x360 BDPT pass at depth 5, 1 spp, key 0, or mean(L) of one PT pass,
+     each lever held to central finite differences (eps 1e-2, common random
+     numbers) on its 4 largest entries within 5 % (tests/test_grad.py's
+     rule), forward and backward seconds and the peak memory above the
+     scene's recorded:
+       a. the Cornell box through K1: albedo and light radiance in one
+          backward, radiance . g within 5 % of the loss (radiance enters
+          linearly), and the same backward through PLAIN within 1e-4 of
+          max|g| (the backward of a gather may add with atomics on the
+          card, so bitwise equality is not demanded);
+       b. the level-6 mesh box through K2, the same; K2's backward against
+          PLAIN's at level 4, 120x90, within 1e-3 of max|g| (K2's any hit
+          may differ from the plain version's on window-edge segments);
+       c. the PT with pt_mis: the open env scene (albedo and the envmap's
+          log-scale) and the Cornell box (albedo and emission; the open
+          scene has no emissive material), through K1;
+       d. examples/inverse_rendering.py in-process: --mode envlight at
+          150 steps, lr 0.03, 40x30 (its own convergence assert), and
+          --mode box at 480x360 for 10 steps (loss and diffuse albedo error
+          at step 9 below step 0), seconds per step.
+ 11. two processes on cuda:0 through parallel/launch.py (gloo on host
+     copies, as tests/test_torch_parallel.py starts them): dp2 x sp1 on
+     the Cornell box (K1) and dp1 x sp2 on the level-6 mesh box (K2), 480x360
+     d5 8 spp BDPT, after a warm-up pass each; both ranks' frames bitwise
+     equal to this process's one-process render_frame_sharded on the same
+     grid, and that frame against render() of the scene by phase 3a's
+     gates and tests/test_parallel.py's rule (at most 0.2 % of elements
+     beyond 1e-6 eye / 1e-5 light, none beyond 1e-3); samples/s of the
+     one-process form and of the two processes, each rank's launches.
 
 Kernel times (utils/timing.py): device_ms is the kernel's own duration
 on the device, from torch.profiler's kernel records (or CUDA events
@@ -125,12 +155,15 @@ test of every block, of every member cluster of each block it crosses, and
 every filled slot of each cluster it crosses; its closest-hit (walk) bound
 counts the same up to each ray's hit.  library_ms is null: no single
 PyTorch call computes a closest hit.  The K1 and K2 lines also carry
-pt_launches, the launches of phase 8d's PT run of their cell, and
-cli_launches, those of phase 9's runs.
+pt_launches, the launches of phase 8d's PT run of their cell,
+cli_launches, those of phase 9's runs, grad_launches, those of phase 10's
+gradient runs (a backward launches no kernel), and mp_launches, each
+rank's in phase 11.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and before that one JSON line
-lists the kernels with their launches, errors and times.
+lists the kernels with their launches, errors and times.  The same kernels
+and the gates of phases 10-11 go to artifacts/GPU_KERNEL_CHECK.json.
 """
 
 from __future__ import annotations
@@ -162,6 +195,7 @@ DAE_FIXTURE = os.path.join(GOLDEN_DIR, "cbox_spheres.dae")
 GOLDEN_DAE = os.path.join(GOLDEN_DIR,
                           "dae_cbox_spheres_bdpt_48x36_d5_8spp_seed0.npz")
 DAE_LEVEL = 4                                  # icospheres of the 9a file
+KERNEL_CHECK = os.path.join(REPO, "artifacts", "GPU_KERNEL_CHECK.json")
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 flop/s (no tensor
 # cores), dense TF32 tensor-core flop/s; the per-test operation counts of
 # the bounds
@@ -1074,6 +1108,315 @@ def phase9_cli(gpu):
     return detail, launches
 
 
+# --- phase 10: gradients through K1 and K2 ----------------------------------
+
+GRAD_PLAIN = (4, 120, 90)  # mesh level, width, height of 10b's K2 vs PLAIN
+GRAD_PLAIN_REL = {"brute_hit": 1e-4, "clustered_hit": 1e-3}   # of max|g|
+
+
+def grad_case(label, scene, cfg, names, gpu, plain_cfg=None,
+              plain_scene=None):
+    """One backward of utils/gradcheck.py pass_loss (pass key 0) through
+    the default dispatch with the K1 and K2 launches counted, each lever
+    held to finite differences on its largest entries; radiance also by
+    linearity.  With plain_cfg, the same backward through the kernel and
+    through PLAIN on plain_scene, held within GRAD_PLAIN_REL of max|g|.
+    Returns a detail record."""
+    import torch
+    from bidirectional_pathtracing_tpu_torch.core import rng
+    from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
+    from bidirectional_pathtracing_tpu_torch.ops import (
+        intersect_clustered as icl)
+    from bidirectional_pathtracing_tpu_torch.ops.intersect import PLAIN
+    from bidirectional_pathtracing_tpu_torch.utils import gradcheck as gc
+    key = rng.key(0)
+    dev = scene.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    ib.brute_hit.launches = icl.clustered_hit.launches = 0
+    loss, grads, secs = gc.gradients(scene, cfg, key, names)
+    rec = {"loss": loss, "forward_s": secs["forward"],
+           "backward_s": secs["backward"],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev) - base_mem,
+           "peak_mem_total_bytes": torch.cuda.max_memory_allocated(dev),
+           "k1": ib.brute_hit.launches, "k2": icl.clustered_hit.launches,
+           "levers": {}}
+    check(np.isfinite(loss) and loss > 0, f"phase10 {label}: loss {loss}")
+    for n in names:
+        g = grads[n]
+        gmax = float(g.abs().max())
+        check(bool(torch.isfinite(g).all()) and gmax > 0,
+              f"phase10 {label} {n}: gradient non-finite or zero")
+        fds = gc.finite_differences(scene, cfg, key, n, g)
+        rec["levers"][n] = {"max_abs_grad": gmax, "finite_differences": fds}
+        check(all(f["ok"] for f in fds),
+              f"phase10 {label} {n}: finite differences {fds}")
+        if n == "radiance":
+            pred = float((g * scene.lights.radiance).sum())
+            rec["levers"][n]["linear_rel"] = abs(pred - loss) / abs(loss)
+            check(abs(pred - loss) <= 0.05 * abs(loss),
+                  f"phase10 {label}: radiance . g {pred} against {loss}")
+    if plain_cfg is not None:
+        kernel = "brute_hit" if rec["k1"] else "clustered_hit"
+        _, g_k, _ = gc.gradients(plain_scene, plain_cfg, key, names)
+        _, g_p, _ = gc.gradients(plain_scene, plain_cfg, key, names,
+                                 isect=PLAIN)
+        diffs = {}
+        for n in names:
+            scale = float(g_p[n].abs().max())
+            diffs[n] = float((g_k[n] - g_p[n]).abs().max()) / scale
+            check(diffs[n] <= GRAD_PLAIN_REL[kernel],
+                  f"phase10 {label} {n}: {kernel} against PLAIN "
+                  f"{diffs[n]:.3e} of max|g|")
+        rec["vs_plain"] = {"kernel": kernel, "size": [plain_cfg.width,
+                                                      plain_cfg.height],
+                           "rel_of_max_grad": diffs}
+    print(f"[phase10] {label}: {json.dumps(rec)} ({gpu})")
+    return rec
+
+
+def phase10_grad(dev, gpu, mesh):
+    """Gradients of one 480x360 pass at key 0 (10a-10c) and the
+    inverse-rendering example in-process (10d).  Returns (detail, {K1
+    launches, K2 launches} of the gradient runs)."""
+    import argparse
+
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.examples import (
+        inverse_rendering)
+    from bidirectional_pathtracing_tpu_torch.scene.build import (
+        attach_accelerator)
+    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+        make_cornell_box, make_mesh_cornell_box, make_open_env_scene)
+
+    def cfg(integrator, w=W, h=H, **kw):
+        return RenderConfig(spp=1, max_ray_depth=DEPTH, width=w, height=h,
+                            integrator=integrator, seed=0, **kw)
+
+    box = make_cornell_box(W, H, sphere_materials=("mirror", "glass"),
+                           device=dev)
+    detail = {}
+    # 10a: the Cornell box, BDPT, through K1, and the same backward
+    # through PLAIN
+    detail["10a"] = grad_case("10a cornell bdpt", box, cfg("bdpt"),
+                              ("albedo", "radiance"), gpu,
+                              plain_cfg=cfg("bdpt"), plain_scene=box)
+    check(detail["10a"]["k1"] > 0 and detail["10a"]["k2"] == 0,
+          "phase10a: K1 / K2 launches")
+    # 10b: the L6 mesh box through K2; K2 against PLAIN at L4 120x90
+    level, pw, ph = GRAD_PLAIN
+    mesh4 = attach_accelerator(make_mesh_cornell_box(level, device=dev))
+    detail["10b"] = grad_case(f"10b meshbox_L{MESH_LEVEL} bdpt", mesh,
+                              cfg("bdpt"), ("albedo", "radiance"), gpu,
+                              plain_cfg=cfg("bdpt", pw, ph),
+                              plain_scene=mesh4)
+    check(detail["10b"]["k2"] > 0 and detail["10b"]["k1"] == 0,
+          "phase10b: K1 / K2 launches")
+    del mesh4
+    # 10c: the PT with pt_mis: the open env scene (albedo, env log-scale)
+    # and the Cornell box (albedo, emission: the open scene has no
+    # emissive material, its emission gradient is zero)
+    detail["10c_open"] = grad_case(
+        "10c open_env pt", make_open_env_scene(device=dev),
+        cfg("pt", pt_mis=True), ("albedo", "log_scale"), gpu)
+    detail["10c_cornell"] = grad_case(
+        "10c cornell pt", box, cfg("pt", pt_mis=True),
+        ("albedo", "emission"), gpu)
+    for k in ("10c_open", "10c_cornell"):
+        check(detail[k]["k1"] > 0 and detail[k]["k2"] == 0,
+              f"phase{k}: K1 / K2 launches")
+    # 10d: the example in-process, every hit through K1
+    from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
+    ib.brute_hit.launches = 0
+    env = inverse_rendering.run_envlight(argparse.Namespace(
+        steps=150, lr=0.03, size=[40, 30], device=dev.type))
+    k1_env = ib.brute_hit.launches
+    ib.brute_hit.launches = 0
+    boxr = inverse_rendering.run_box(argparse.Namespace(
+        steps=10, lr=0.05, size=[W, H], device=dev.type),
+        assert_converged=False)
+    k1_box = ib.brute_hit.launches
+    check(k1_env > 0 and k1_box > 0, "phase10d: the example launched no K1")
+    check(boxr["loss"][9] < boxr["loss"][0]
+          and boxr["albedo_err"][10] < boxr["albedo_err"][1],
+          f"phase10d box: loss {boxr['loss'][0]} -> {boxr['loss'][9]}, "
+          f"error {boxr['albedo_err'][1]} -> {boxr['albedo_err'][10]}")
+    detail["10d"] = {
+        "envlight": {"steps": 150, "size": [40, 30],
+                     "albedo_err": [env["albedo_err"][0],
+                                    env["albedo_err"][-1]],
+                     "log_scale_err": [env["log_scale_err"][0],
+                                       env["log_scale_err"][-1]],
+                     "seconds_per_step": env["seconds_per_step"],
+                     "k1": k1_env},
+        "box": {"steps": 10, "size": [W, H],
+                "loss": [boxr["loss"][0], boxr["loss"][9]],
+                "albedo_err": [boxr["albedo_err"][1],
+                               boxr["albedo_err"][10]],
+                "seconds_per_step": boxr["seconds_per_step"], "k1": k1_box}}
+    print(f"[phase10d] {json.dumps(detail['10d'])} ({gpu})")
+    launches = {"k1": {k: detail[k]["k1"] for k in
+                       ("10a", "10c_open", "10c_cornell")},
+                "k2": {"10b": detail["10b"]["k2"]}}
+    return detail, launches
+
+
+# --- phase 11: the multi-process render -------------------------------------
+
+MP_SPP = 8
+MP_WORKER = """
+import json, sys, time
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
+from bidirectional_pathtracing_tpu_torch.ops import intersect_clustered as icl
+from bidirectional_pathtracing_tpu_torch.parallel import launch
+from bidirectional_pathtracing_tpu_torch.parallel.render import render_rank
+from bidirectional_pathtracing_tpu_torch.scene.build import attach_accelerator
+from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+    make_cornell_box, make_mesh_cornell_box)
+pid, port, out, name, sp = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                            sys.argv[4], int(sys.argv[5]))
+rank, world = launch.initialize("127.0.0.1:" + port, 2, pid)
+dev = launch.rank_device({device!r})
+scene = (make_cornell_box({w}, {h}, sphere_materials=("mirror", "glass"),
+                          device=dev) if name == "cornell" else
+         attach_accelerator(make_mesh_cornell_box({level}, device=dev)))
+cfg = RenderConfig(spp={spp}, max_ray_depth={depth}, width={w}, height={h},
+                   integrator="bdpt", seed=0)
+# warm-up: one pass of this rank's cell at another seed
+render_rank(scene, RenderConfig(spp=sp, max_ray_depth={depth}, width={w},
+                                height={h}, integrator="bdpt", seed=1),
+            world // sp, sp, rank)
+if dev.type == "cuda":
+    torch.cuda.synchronize()
+launch.dist.barrier()
+ib.brute_hit.launches = icl.clustered_hit.launches = 0
+t0 = time.perf_counter()
+eye, light, combined = launch.render_frame_multihost(scene, cfg, sp=sp)
+dt = time.perf_counter() - t0
+np.savez(out + str(rank) + ".npz", eye=eye, light=light, combined=combined)
+with open(out + str(rank) + ".json", "w") as f:
+    json.dump({{"seconds": dt, "k1": ib.brute_hit.launches,
+               "k2": icl.clustered_hit.launches, "device": str(dev)}}, f)
+launch.dist.destroy_process_group()
+"""
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_two_ranks(name, sp, tmp, device):
+    """Two worker processes (MP_WORKER) on `device` ("cuda": the card of
+    this process, cuda:0), gloo on host copies; waits for both (600 s).
+    Returns per rank (frame arrays, record)."""
+    worker = MP_WORKER.format(repo=REPO, w=W, h=H, level=MESH_LEVEL,
+                              spp=MP_SPP, depth=DEPTH, device=device)
+    port, out = str(_free_port()), os.path.join(tmp, f"{name}_rank")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", worker, str(i), port, out, name, str(sp)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for i in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          f"phase11 {name}: a rank failed:\n" + "\n".join(logs)[-6000:])
+    ranks = []
+    for i in range(2):
+        with open(out + f"{i}.json") as f:
+            rec = json.load(f)
+        ranks.append((np.load(out + f"{i}.npz"), rec))
+    return ranks
+
+
+def phase11_multiprocess(dev, gpu, mesh):
+    """Two ranks on one card through parallel/launch.py, dp2 x sp1 on the
+    Cornell box (K1) and dp1 x sp2 on the L6 mesh box (K2), 480x360 d5
+    8 spp BDPT: their frame bitwise the one-process render_frame_sharded's
+    on the same grid, and that frame against render() of the scene.
+    Returns (detail, {kernel: {grid: per-rank launches}})."""
+    import tempfile
+
+    import torch
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
+    from bidirectional_pathtracing_tpu_torch.ops import (
+        intersect_clustered as icl)
+    from bidirectional_pathtracing_tpu_torch.parallel.render import (
+        render_frame_sharded)
+    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+        make_cornell_box)
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+    cfg = RenderConfig(spp=MP_SPP, max_ray_depth=DEPTH, width=W, height=H,
+                       integrator="bdpt", seed=0)
+    box = make_cornell_box(W, H, sphere_materials=("mirror", "glass"),
+                           device=dev)
+    detail, launches = {}, {"brute_hit": {}, "clustered_hit": {}}
+    samples = W * H * MP_SPP
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as tmp:
+        for name, scene, dp, sp, kernel in (
+                ("cornell", box, 2, 1, "brute_hit"),
+                ("meshbox", mesh, 1, 2, "clustered_hit")):
+            grid = f"dp{dp}xsp{sp}"
+            ranks = run_two_ranks(name, sp, tmp, dev.type)
+            torch.cuda.synchronize()
+            ib.brute_hit.launches = icl.clustered_hit.launches = 0
+            t0 = time.perf_counter()
+            one = render_frame_sharded(scene, cfg, dp=dp, sp=sp)
+            torch.cuda.synchronize()
+            one_s = time.perf_counter() - t0
+            one_k = {"brute_hit": ib.brute_hit.launches,
+                     "clustered_hit": icl.clustered_hit.launches}
+            mine, other = (("k1", "k2") if kernel == "brute_hit"
+                           else ("k2", "k1"))
+            for i, (arrs, rec) in enumerate(ranks):
+                for k, ref in zip(("eye", "light", "combined"), one):
+                    check(np.array_equal(arrs[k], ref),
+                          f"phase11 {name} {grid}: rank {i}'s {k} image "
+                          "differs from the one-process frame")
+                check(rec[mine] > 0 and rec[other] == 0,
+                      f"phase11 {name}: rank {i} launches {rec}")
+            ref = render(scene, cfg)
+            eye, light, combined = one
+            rel, blk = render_vs(f"phase11 {name} vs render()",
+                                 ref.combined, combined, 1e-3, 0.01)
+            rule = {}
+            for k, a, b, atol in (("eye", eye, ref.eye, 1e-6),
+                                  ("light", light, ref.light, 1e-5)):
+                d = np.abs(a.astype(np.float64) - b)
+                rule[k] = {"beyond_atol": float((d > atol).mean()),
+                           "max_abs": float(d.max())}
+                check(rule[k]["beyond_atol"] <= 0.002
+                      and rule[k]["max_abs"] < 1e-3,
+                      f"phase11 {name} {k} against render(): {rule[k]}")
+            mp_s = max(r["seconds"] for _, r in ranks)
+            out = {"grid": grid, "bitwise_equal": True,
+                   "vs_render": {"rel": rel, "block": blk, **rule},
+                   "one_process_s": one_s,
+                   "one_process_samples_per_s": samples / one_s,
+                   "one_process_launches": one_k,
+                   "two_process_s": mp_s,
+                   "two_process_samples_per_s": samples / mp_s,
+                   "ranks": [r for _, r in ranks]}
+            print(f"[phase11] {name} {grid} 480x360 d5 {MP_SPP}spp: "
+                  f"{json.dumps(out)} ({gpu})")
+            detail[f"{name}_{grid}"] = out
+            launches[kernel][grid] = [r[mine] for _, r in ranks]
+    return detail, launches
+
+
 def main() -> int:
     import torch
 
@@ -1284,8 +1627,10 @@ def main() -> int:
     k3 = phase6_k3(dev, gpu)
     env = phase7_env(dev, gpu, mesh)
     pt, pt_timed = phase8_pt(dev, gpu, mesh)
-    del mesh
     cli, cli_launches = phase9_cli(gpu)
+    grad, grad_launches = phase10_grad(dev, gpu, mesh)
+    mp, mp_launches = phase11_multiprocess(dev, gpu, mesh)
+    del mesh
 
     # Every kernel: ms is device_ms, the kernel's own time on the device
     # (utils/timing.py; device_source says whether from the profiler or a
@@ -1322,6 +1667,8 @@ def main() -> int:
         "pt_launches": pt_timed["cornell"]["launches"],
         "pt_launches_per_pass": pt_timed["cornell"]["launches_per_pass"],
         "cli_launches": {"9d_golden": cli_launches["9d_golden"][0]},
+        "grad_launches": grad_launches["k1"],
+        "mp_launches": mp_launches["brute_hit"],
         "walk_172800_ms": k1w["device_ms"],
         "walk_172800_device_ms": k1w["device_ms"],
         "walk_172800_call_ms": k1w["call_ms"],
@@ -1357,6 +1704,8 @@ def main() -> int:
             pt_timed[f"meshbox_L{MESH_LEVEL}"]["launches_per_pass"],
         "cli_launches": {k: cli_launches[k][1]
                          for k in ("9a_bdpt", "9b_env", "9c_pt")},
+        "grad_launches": grad_launches["k2"],
+        "mp_launches": mp_launches["clustered_hit"],
     }] + k3["kernels"]}
     detail = {"gpu": gpu, "k1_times": times, "k2_times": k2_times,
               "checks": {"cornell": rep_box, "soup8192": rep_soup,
@@ -1376,13 +1725,19 @@ def main() -> int:
                   "samples_per_s": st8s["camera_samples_per_s"],
                   "mrays_per_s": st8s["mrays_per_s"],
                   "wall_s": st8s["wall_time_s"], "vs_default_rel": rel_5s},
-              "k3": k3["detail"], "env": env, "pt": pt, "cli": cli}
+              "k3": k3["detail"], "env": env, "pt": pt, "cli": cli,
+              "grad": grad, "mp": mp}
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    os.makedirs(os.path.dirname(KERNEL_CHECK), exist_ok=True)
+    with open(KERNEL_CHECK, "w") as f:
+        json.dump({"ok": True, "gpu": gpu, "device": device,
+                   "kernels": kernels["kernels"],
+                   "gates": {"phase10": grad, "phase11": mp}}, f, indent=1)
     print(f"[detail] {json.dumps(detail)}")
     print(json.dumps(kernels))
     print(gpu_line())
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": device}))
     return 0
 
 

@@ -7,7 +7,10 @@ the plain version; the two sources of utils/timing.py device_ms; PT
 renders through K1 and K2 against the plain version, with their launch
 counts; bitwise-reproducible BDPT renders and light-image splats; and
 resume, cell mode, adaptive sampling and autofocus on the card; the CLI
-on a .dae file through K1.
+on a .dae file through K1; gradients through K1 against the plain
+version, the wrappers' refusal of rays that require grad, the
+inverse-rendering example at its defaults, and a two-process render
+(parallel/launch.py) on one card.
 
 Jax-free, so it runs where the card is (that machine has no jax; the
 repo's conftest imports it, so pass --noconftest):
@@ -695,3 +698,108 @@ def test_cli_renders_dae_on_card(cuda, tmp_path):
     b = read_png(str(tmp_path / "cpu.png")).astype(int)
     assert a.shape == (36, 48, 4) and a[..., :3].mean() > 10
     assert np.abs(a - b).mean() <= 1.0, np.abs(a - b).mean()
+
+
+@pytest.mark.parametrize("integrator,names", [
+    ("bdpt", ("albedo", "radiance")), ("pt", ("albedo", "emission"))])
+def test_gradients_through_kernel_match_plain(cuda, integrator, names):
+    """One backward through K1 against the same backward through the plain
+    version (utils/gradcheck.py): within 1e-4 of max|g|.  Not bitwise:
+    the backward of a gather adds with atomics on the card."""
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.core import rng
+    from bidirectional_pathtracing_tpu_torch.utils import gradcheck as gc
+    box = make_cornell_box(64, 48, device=cuda)
+    cfg = RenderConfig(spp=1, max_ray_depth=3, width=64, height=48,
+                       integrator=integrator)
+    before = ib.brute_hit.launches
+    loss_k, g_k, _ = gc.gradients(box, cfg, rng.key(0), names)
+    assert ib.brute_hit.launches > before
+    loss_p, g_p, _ = gc.gradients(box, cfg, rng.key(0), names, isect=PLAIN)
+    assert abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
+    for n in names:
+        scale = float(g_p[n].abs().max())
+        assert scale > 0 and torch.isfinite(g_k[n]).all()
+        assert float((g_k[n] - g_p[n]).abs().max()) <= 1e-4 * scale, n
+
+
+def test_kernel_wrappers_refuse_rays_that_require_grad(cuda):
+    """K1 and K2 have no backward: their wrappers raise on card rays or
+    windows that require grad instead of returning a detached t."""
+    box = make_cornell_box(device=cuda)
+    mesh = attach_accelerator(make_mesh_cornell_box(2, device=cuda))
+    o = torch.tensor([[0.0, 0.8, 3.0]], device=cuda).repeat(64, 1)
+    d = torch.tensor([[0.0, -0.1, -1.0]], device=cuda).repeat(64, 1)
+    lo = torch.full((64,), EPS_F, device=cuda)
+    hi = torch.full((64,), INF_D, device=cuda)
+    for name in ("o", "d", "min_t", "max_t"):
+        args = dict(o=o, d=d, min_t=lo, max_t=hi)
+        args[name] = args[name].clone().requires_grad_(True)
+        before = (ib.brute_hit.launches, icl.clustered_hit.launches)
+        with pytest.raises(RuntimeError, match="requires grad"):
+            ib.brute_hit(box.geometry, **args)
+        with pytest.raises(RuntimeError, match="requires grad"):
+            icl.clustered_hit(mesh.clusters, **args)
+        assert (ib.brute_hit.launches, icl.clustered_hit.launches) == before
+    t, prim = ib.brute_hit(box.geometry, o, d, lo, hi)
+    assert not t.requires_grad and bool((prim >= 0).all())
+
+
+def test_inverse_rendering_box_example_on_card(cuda):
+    """The example's defaults (BDPT, 60 steps at 48x36) on the card, every
+    hit through K1: the diffuse albedo error halves (its own assert)."""
+    from bidirectional_pathtracing_tpu_torch.examples import (
+        inverse_rendering)
+    before = ib.brute_hit.launches
+    hist = inverse_rendering.main([])
+    assert ib.brute_hit.launches > before
+    assert hist["albedo_err"][-1] < 0.5 * hist["albedo_err"][0]
+
+
+def test_two_rank_gloo_render_on_one_card(cuda, tmp_path):
+    """parallel/launch.py main as 2 processes on cuda:0 (gloo on the host
+    copies), dp2 x sp1 on cbox_spheres.dae: process 0's PNG is byte for
+    byte the one-process render_frame_sharded frame's, rendered here."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.parallel.render import (
+        render_frame_sharded)
+    from bidirectional_pathtracing_tpu_torch.scene.build import load_scene
+    from bidirectional_pathtracing_tpu_torch.utils.image import save_image
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dae = os.path.join(repo, "tests", "golden", "torch_port",
+                       "cbox_spheres.dae")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    png, stats = str(tmp_path / "mp.png"), str(tmp_path / "mp.json")
+    argv = [sys.executable, "-m",
+            "bidirectional_pathtracing_tpu_torch.parallel.launch", dae,
+            "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+            "-r", "160", "120", "-s", "4", "-m", "5", "-f", png,
+            "--stats-json", stats]
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen(argv + ["--process-id", str(i)], cwd=repo,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for i in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
+    st = json.loads(open(stats).read())
+    assert st["rank_devices"] == ["cuda:0", "cuda:0"] and st["devices"] == 1
+    scene, _ = load_scene(dae, 160, 120, device=cuda)
+    cfg = RenderConfig(spp=4, max_ray_depth=5, width=160, height=120)
+    one = str(tmp_path / "one.png")
+    save_image(one, render_frame_sharded(scene, cfg, dp=2, sp=1)[2])
+    with open(png, "rb") as a, open(one, "rb") as b:
+        assert a.read() == b.read()
