@@ -23,10 +23,13 @@ plus the JAX package's:
                              raytraced_renderer.cpp:53)
   --seed N
   --save-buffers            also write <out>_eye.png / <out>_light.png
+  --visualize-bvh [NAV]     also write <out>_bvh.png, the BVH visualizer's
+                            image (utils/bvh_vis.py) of the node NAV walks
+                            to (l/r/u from the root)
+  --bvh-rays STRIDE         with it, overlay every STRIDE-th primary ray
 and --device (default cuda), where the scene is built and rendered.
 Without a card, pass --device cpu; the default then fails, it never falls
-back to the CPU.  --visualize-bvh and --bvh-rays are refused (the BVH
-visualizer is not ported).
+back to the CPU.
 
 Usage: python -m bidirectional_pathtracing_tpu_torch.cli [flags] scene.dae
 """
@@ -75,10 +78,10 @@ def build_argparser():
     ap.add_argument("--accelerator", choices=["auto", "brute", "bvh"],
                     default="auto",
                     help="intersection backend (RenderConfig.accelerator); "
-                         "bvh attaches the cluster tables at any size")
+                         "bvh attaches the BVH and the cluster tables at "
+                         "any size")
     ap.add_argument("--bvh-leaf-size", type=int, default=4,
-                    help="BVH max primitives per leaf (reference bvh.h:61); "
-                         "no effect until BVHArrays is ported (ROADMAP A7)")
+                    help="BVH max primitives per leaf (reference bvh.h:61)")
     ap.add_argument("--brute-max-tris", type=int, default=2048,
                     help="auto mode: attach the cluster tables above this "
                          "many prims (the clustered kernel serves scenes "
@@ -100,9 +103,15 @@ def build_argparser():
                          "(EnvironmentLight::save_probability_debug)")
     ap.add_argument("--visualize-bvh", nargs="?", const="", default=None,
                     metavar="NAV",
-                    help="not ported (ROADMAP A9): refused")
+                    help="write <out>_bvh.png visualizing the BVH (the "
+                         "reference's VISUALIZE mode); NAV is a walk string "
+                         "of l/r/u applied from the root, mirroring the "
+                         "arrow keys (raytraced_renderer.cpp:560-574)")
     ap.add_argument("--bvh-rays", type=int, default=0, metavar="STRIDE",
-                    help="not ported (ROADMAP A9): refused")
+                    help="overlay primary rays every STRIDE pixels on the "
+                         "BVH visualization (yellow=hit red=miss, "
+                         "raytraced_renderer.cpp:439-463); 0 = off; needs "
+                         "--visualize-bvh")
     ap.add_argument("--upsample", type=int, default=0, metavar="N",
                     help="apply N rounds of Loop subdivision to every mesh "
                          "before rendering (the reference EDIT-mode 'u' key)")
@@ -122,9 +131,14 @@ def build_argparser():
 def main(argv=None):
     ap = build_argparser()
     args = ap.parse_args(argv)
-    if args.visualize_bvh is not None or args.bvh_rays:
-        ap.error("--visualize-bvh / --bvh-rays: the BVH visualizer "
-                 "(utils/bvh_vis.py) is not ported (ROADMAP A9)")
+    if args.visualize_bvh and (set(args.visualize_bvh) - set("lru")):
+        ap.error(f"--visualize-bvh: invalid walk {args.visualize_bvh!r} "
+                 "(use only l/r/u)")
+    if args.bvh_rays and args.visualize_bvh is None:
+        ap.error("--bvh-rays overlays rays on the BVH visualization: "
+                 "pass --visualize-bvh too")
+    if args.bvh_rays < 0:
+        ap.error(f"--bvh-rays: stride {args.bvh_rays} is negative")
 
     import torch
     if (torch.device(args.device).type == "cuda"
@@ -170,6 +184,7 @@ def main(argv=None):
                             focal_distance=cfg.focal_distance,
                             accel=cfg.accelerator,
                             brute_force_max_tris=cfg.brute_force_max_tris,
+                            bvh_max_leaf_size=cfg.bvh_max_leaf_size,
                             mesh_ops=tuple(mesh_ops), device=dev)
     if args.envmap:
         from bidirectional_pathtracing_tpu_torch.ops import envlight
@@ -185,8 +200,9 @@ def main(argv=None):
     parts = ", ".join(f"{k} {v:.2f}s" for k, v in aux["seconds"].items())
     print(f"{_TAG} scene: {aux['num_tris']} tris, "
           f"{aux['num_spheres']} spheres, loaded in {load_s:.2f}s "
-          f"({parts}), clusters "
-          f"{'attached' if scene.clusters is not None else 'none'}",
+          f"({parts}), BVH {'attached' if scene.bvh is not None else 'none'}"
+          f", clusters {'attached' if scene.clusters is not None else 'none'}"
+          + (f" ({aux['builder']} builder)" if aux["builder"] else ""),
           file=sys.stderr)
 
     if args.camera_settings:
@@ -248,6 +264,19 @@ def main(argv=None):
     if args.stats_json:
         with open(args.stats_json, "w") as f:
             json.dump(st, f)
+    if args.visualize_bvh is not None:
+        from bidirectional_pathtracing_tpu_torch.utils.bvh_vis import (
+            BVHVisualizer, collect_ray_log, save_visualization)
+        vis = BVHVisualizer(scene)
+        vis.navigate(args.visualize_bvh)
+        ray_log = (collect_ray_log(scene, w, h, args.bvh_rays)
+                   if args.bvh_rays else None)
+        imgv = vis.render(w, h, ray_log=ray_log, ray_stride=1)
+        bvh_path = (args.output[:-4] if args.output.endswith(".png")
+                    else args.output) + "_bvh.png"
+        save_visualization(bvh_path, imgv)
+        print(f"{_TAG} saved {bvh_path} (node {vis.current()})",
+              file=sys.stderr)
     print(f"{_TAG} saved {args.output}", file=sys.stderr)
 
 

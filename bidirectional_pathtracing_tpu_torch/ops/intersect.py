@@ -19,9 +19,11 @@ product is written out term by term, in the order the CUDA kernel
 
 The scene-level dispatch (scene_intersect / scene_occluded) routes by
 triangle count (kernel_route): large scenes with clusters attached take
-the clustered kernel (ops/intersect_clustered.py), the rest the
-brute-force kernel (ops/intersect_brute.py) on CUDA tensors and the plain
-versions on CPU tensors.  SORTED is the JAX package's sorted clustered
+the clustered kernel (ops/intersect_clustered.py), scenes above the
+brute-force cap with only a BVH the escape-link walk (intersect_bvh below,
+its kernel in ops/intersect_bvh.py), the rest the brute-force kernel
+(ops/intersect_brute.py) on CUDA tensors and the plain versions on CPU
+tensors.  SORTED is the JAX package's sorted clustered
 dispatch (a ray sort before each clustered launch); it gives the same
 results and is not the default, because on an H100 its plain-torch shadow
 key costs far more than the sort saves the kernel.
@@ -269,6 +271,180 @@ def occluded_segment(geom: Geometry, a, b, rel_eps: float = 2e-4):
     return blocked, conn, dist
 
 
+# --- BVH walk (flattened pre-order, escape links) ---------------------------
+
+def _unit3(v):
+    """v / max(|v|, 1e-20) with |v| summed term by term (the walk kernel's
+    order, csrc/bvh_walk.cu)."""
+    return v / torch.clamp_min(torch.sqrt(_dot3(v, v)), 1e-20)[..., None]
+
+
+def _slab3(o, inv_d, lo, hi, min_t, max_t):
+    """Slab test (bbox.cpp:10-56) of rays [A] against boxes [A]: the
+    entry the larger of the three axes' near planes, the exit the smaller
+    of their far planes, compared left to right as csrc/bvh_walk.cu does
+    (torch.minimum / maximum: a NaN propagates)."""
+    t0 = (lo - o) * inv_d
+    t1 = (hi - o) * inv_d
+    near = torch.minimum(t0, t1)
+    far = torch.maximum(t0, t1)
+    tmin = torch.maximum(torch.maximum(near[:, 0], near[:, 1]), near[:, 2])
+    tmax = torch.minimum(torch.minimum(far[:, 0], far[:, 1]), far[:, 2])
+    return (tmax >= tmin) & (tmax >= min_t) & (tmin <= max_t)
+
+
+def _walk_prim(geom: Geometry, pid, o, d, min_t, lim):
+    """The JAX walk's unified test (ops/intersect.py:286-337) of rays [A]
+    against global prim ids pid [A] (-1: none): Möller–Trumbore for a
+    triangle, the quadratic with unit d for a sphere.  Returns (t [A],
+    INF_D where it misses the window [min_t, lim], b1, b2)."""
+    num_t = geom.num_tris
+    is_tri = (pid >= 0) & (pid < num_t)
+    tid = torch.clamp(pid, 0, num_t - 1).long()
+    tp = geom.tri_p[tid]
+    p0 = tp[:, 0]
+    e1 = tp[:, 1] - p0
+    e2 = tp[:, 2] - p0
+    sv = o - p0
+    s1 = _cross3(d, e2)
+    s2 = _cross3(sv, e1)
+    den = _dot3(s1, e1)
+    inv = torch.where(den == 0, 0.0, 1.0 / torch.where(den == 0, 1.0, den))
+    t_tri = _dot3(s2, e2) * inv
+    b1 = _dot3(s1, sv) * inv
+    b2 = _dot3(s2, d) * inv
+    tri_ok = (is_tri & (den != 0) & (t_tri >= min_t) & (t_tri <= lim)
+              & (b1 >= 0) & (b2 >= 0) & (b1 + b2 <= 1))
+    t = torch.where(tri_ok, t_tri, INF_D)
+    if geom.num_spheres > 0:
+        is_sph = pid >= num_t
+        qid = torch.clamp(pid - num_t, 0, geom.num_spheres - 1).long()
+        oc = o - geom.sph_c[qid]
+        r = geom.sph_r[qid]
+        b = 2.0 * _dot3(oc, d)
+        cc = _dot3(oc, oc) - r * r
+        delta = b * b - 4.0 * cc
+        sq = torch.sqrt(torch.clamp_min(delta, 0.0))
+        t1 = (-b - sq) / 2.0
+        t2 = (-b + sq) / 2.0
+        in1 = (t1 >= min_t) & (t1 <= lim)
+        in2 = (t2 >= min_t) & (t2 <= lim)
+        sph_ok = is_sph & (delta >= 0) & (in1 | in2)
+        t = torch.where(sph_ok & ~tri_ok, torch.where(in1, t1, t2), t)
+    return t, b1, b2
+
+
+def bvh_resolve(geom: Geometry, o, d, t, prim, b1, b2) -> Hit:
+    """Hit record of a walk's winners: the triangle's barycentric normal
+    from its (b1, b2), or the sphere's analytic normal at t, normalised by
+    _unit3; material by gather."""
+    num_t = geom.num_tris
+    found = prim >= 0
+    tri_hit = found & (prim < num_t)
+    tid = torch.clamp(prim, 0, num_t - 1).long()
+    tn = geom.tri_n[tid]
+    w0 = ((1.0 - b1) - b2)[:, None]
+    n = _unit3(tn[:, 0] * w0 + tn[:, 1] * b1[:, None]
+               + tn[:, 2] * b2[:, None])
+    n = torch.where(tri_hit[:, None], n, 0.0)
+    mat = torch.where(tri_hit, geom.tri_mat[tid], -1)
+    if geom.num_spheres > 0:
+        sph_hit = found & (prim >= num_t)
+        qid = torch.clamp(prim - num_t, 0, geom.num_spheres - 1).long()
+        n_sph = _unit3((o + t[:, None] * d) - geom.sph_c[qid])
+        n = torch.where(sph_hit[:, None], n_sph, n)
+        mat = torch.where(sph_hit, geom.sph_mat[qid], mat)
+    return Hit(t=t, valid=t < INF_D, n=n, mat=mat.to(torch.int32),
+               prim=prim.to(torch.int32))
+
+
+def intersect_bvh(geom: Geometry, bvh, o, d, min_t, max_t,
+                  any_hit: bool = False, stats: dict | None = None):
+    """Closest hit (Hit) or any hit (bool [R]) by the stackless pre-order
+    walk of a BVHArrays (plain torch): the JAX package's intersect_bvh
+    (ops/intersect.py:270-383), the reference's bvh.cpp:161-188 without
+    recursion.
+
+    Each step visits one node per walking ray: the slab test against
+    [min_t, min(max_t, best_t)], then on a leaf every one of its prim_count
+    primitives in leaf order (strict t < best_t, so the first of equal t
+    wins), then the next node in pre-order into a crossed inner node, else
+    the escape link.  The JAX walk tests at most 4 primitives of a leaf
+    whatever the tree's leaf size (:356; ROADMAP C11); this one tests them
+    all, and is the JAX walk wherever leaves hold 4 or fewer.  An any hit
+    stops at its first hit.  Rays that leave the tree drop out of the
+    steps, so a step costs what its walking rays need; a step is one host
+    sync.
+
+    stats: a dict that receives the work the walk did: "nodes" (ray-node
+    visits), "tri_tests" and "sphere_tests" (ray-primitive tests), "steps".
+    """
+    r_count = o.shape[0]
+    dev = o.device
+    min_t = _window(min_t, r_count, o)
+    max_t = _window(max_t, r_count, o)
+    inv_d = torch.where(d == 0, INF_D, 1.0 / torch.where(d == 0, 1.0, d))
+    n_nodes = bvh.is_leaf.shape[0]
+    n_order = bvh.prim_order.shape[0]
+    num_t = geom.num_tris
+    max_leaf = int(bvh.prim_count.max()) if n_nodes else 0
+    best_t = torch.full((r_count,), INF_D, dtype=o.dtype, device=dev)
+    best_prim = torch.full((r_count,), -1, dtype=torch.int32, device=dev)
+    best_b1 = torch.zeros((r_count,), dtype=o.dtype, device=dev)
+    best_b2 = torch.zeros((r_count,), dtype=o.dtype, device=dev)
+    ptr = torch.zeros((r_count,), dtype=torch.int64, device=dev)
+    act = torch.arange(r_count, device=dev) if n_nodes else ptr[:0]
+    work = torch.zeros((3,), dtype=torch.int64, device=dev)
+    steps = 0
+    while act.numel() > 0:
+        steps += 1
+        p = ptr[act]
+        oo, dd, lo_t = o[act], d[act], min_t[act]
+        bt = best_t[act]
+        box = _slab3(oo, inv_d[act], bvh.bounds_lo[p], bvh.bounds_hi[p],
+                     lo_t, torch.minimum(max_t[act], bt))
+        leaf = bvh.is_leaf[p]
+        sub = torch.nonzero(box & leaf).squeeze(1)
+        if sub.numel() > 0:
+            rays = act[sub]
+            so, sd, slo = oo[sub], dd[sub], lo_t[sub]
+            shi = max_t[rays]
+            sbt, sbp = bt[sub], best_prim[rays]
+            sb1, sb2 = best_b1[rays], best_b2[rays]
+            start = bvh.prim_start[p[sub]].long()
+            count = bvh.prim_count[p[sub]]
+            for j in range(max_leaf):
+                has = j < count
+                pid = torch.where(has, bvh.prim_order[
+                    torch.clamp(start + j, max=n_order - 1)], -1)
+                t, b1, b2 = _walk_prim(geom, pid, so, sd, slo,
+                                       torch.minimum(shi, sbt))
+                closer = t < sbt
+                sbt = torch.where(closer, t, sbt)
+                sbp = torch.where(closer, pid, sbp)
+                sb1 = torch.where(closer, b1, sb1)
+                sb2 = torch.where(closer, b2, sb2)
+                if stats is not None:
+                    work[1] += (has & (pid < num_t)).sum()
+                    work[2] += (has & (pid >= num_t)).sum()
+            best_t[rays], best_prim[rays] = sbt, sbp
+            best_b1[rays], best_b2[rays] = sb1, sb2
+        nxt = torch.where(box & ~leaf, p + 1, bvh.escape[p].long())
+        if any_hit:
+            nxt = torch.where(best_prim[act] >= 0, n_nodes, nxt)
+        ptr[act] = nxt
+        if stats is not None:
+            work[0] += act.numel()
+        act = act[nxt < n_nodes]
+    if stats is not None:
+        nodes, tri, sph = work.tolist()
+        stats.update(nodes=nodes, tri_tests=tri, sphere_tests=sph,
+                     steps=steps)
+    if any_hit:
+        return best_prim >= 0
+    return bvh_resolve(geom, o, d, best_t, best_prim, best_b1, best_b2)
+
+
 # --- scene-level dispatch ---------------------------------------------------
 
 # Triangle-count routing of the JAX package (ops/intersect.py:394-395,
@@ -291,19 +467,23 @@ _KEY_RAYS = 1 << 19      # rays per slab pass: [32, 2^19] f32 temporaries
 def kernel_route(scene, cuda: bool = True) -> str:
     """The intersection route of a launch: "clustered" above _BRUTE_PREF
     triangles with clusters attached (K2 on CUDA, its plain version on the
-    CPU), else "brute" on CUDA (K1) and "plain" on the CPU.  Raises
-    NotImplementedError on CUDA above _BRUTE_MAX_TRIS triangles with no
-    clusters (the JAX package walks its BVH there, not ported yet)."""
+    CPU); "bvh" above _BRUTE_MAX_TRIS triangles with no clusters and a BVH
+    attached (the walk kernel on CUDA, intersect_bvh on the CPU: the JAX
+    package's route there, :609-610, :646-648); else "brute" on CUDA (K1)
+    and "plain" on the CPU.  Raises NotImplementedError on CUDA above
+    _BRUTE_MAX_TRIS triangles with neither attached."""
     n_t = scene.geometry.num_tris
     if scene.clusters is not None and n_t > _BRUTE_PREF:
         return "clustered"
+    if n_t > _BRUTE_MAX_TRIS and scene.bvh is not None:
+        return "bvh"
     if not cuda:
         return "plain"
     if n_t > _BRUTE_MAX_TRIS:
         raise NotImplementedError(
             f"{n_t} triangles exceed the brute-force kernel's "
-            f"{_BRUTE_MAX_TRIS}-triangle cap; attach clusters "
-            "(scene/build.py attach_accelerator) for the clustered kernel")
+            f"{_BRUTE_MAX_TRIS}-triangle cap; attach clusters or a BVH "
+            "(scene/build.py attach_accelerator)")
     return "brute"
 
 
@@ -451,14 +631,19 @@ def _sorted_clustered_occluded(scene, o, d, min_t, max_t):
 
 
 def scene_intersect(scene, o, d, min_t, max_t) -> Hit:
-    """Closest-hit dispatch by kernel_route: the clustered kernel or the
-    brute-force kernel for CUDA tensors; the clustered kernel's plain
-    version or the plain `intersect` for CPU tensors."""
+    """Closest-hit dispatch by kernel_route: the clustered kernel, the
+    walk kernel or the brute-force kernel for CUDA tensors; the clustered
+    kernel's plain version, intersect_bvh or the plain `intersect` for CPU
+    tensors."""
     route = kernel_route(scene, o.is_cuda)
     if route == "clustered":
         from bidirectional_pathtracing_tpu_torch.ops import intersect_clustered
         return intersect_clustered.intersect_clustered(
             scene.geometry, scene.clusters, o, d, min_t, max_t)
+    if route == "bvh":
+        from bidirectional_pathtracing_tpu_torch.ops import intersect_bvh
+        return intersect_bvh.bvh_walk(scene.geometry, scene.bvh, o, d,
+                                      min_t, max_t)
     if route == "brute":
         from bidirectional_pathtracing_tpu_torch.ops import intersect_brute
         return intersect_brute.intersect_brute(scene.geometry, o, d,
@@ -475,6 +660,10 @@ def scene_occluded(scene, o, d, min_t, max_t):
         from bidirectional_pathtracing_tpu_torch.ops import intersect_clustered
         return intersect_clustered.occluded_clustered(
             scene.geometry, scene.clusters, o, d, min_t, max_t)
+    if route == "bvh":
+        from bidirectional_pathtracing_tpu_torch.ops import intersect_bvh
+        return intersect_bvh.bvh_walk(scene.geometry, scene.bvh, o, d,
+                                      min_t, max_t, any_hit=True)
     if route == "brute":
         from bidirectional_pathtracing_tpu_torch.ops import intersect_brute
         _, prim = intersect_brute.brute_hit(scene.geometry, o, d,

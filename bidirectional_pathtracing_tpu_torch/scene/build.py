@@ -46,7 +46,7 @@ from bidirectional_pathtracing_tpu_torch.scene.halfedge import (
     compute_vertex_normals)
 from bidirectional_pathtracing_tpu_torch.scene.meshedit import HalfedgeMesh
 from bidirectional_pathtracing_tpu_torch.scene.types import (
-    Camera, Geometry, Scene,
+    Camera, Scene,
     LIGHT_AREA, LIGHT_DIRECTIONAL, LIGHT_HEMISPHERE, LIGHT_POINT, LIGHT_SPOT,
     MAT_DIFFUSE,
     make_geometry, make_lights, make_materials,
@@ -85,36 +85,57 @@ def _material_record(mat: C.MaterialInfo | None) -> dict:
 
 
 def attach_accelerator(scene: Scene, accel: str = "auto",
-                       brute_force_max_tris: int = 2048) -> Scene:
-    """Attach the cluster tables when the scene is big enough to beat
+                       brute_force_max_tris: int = 2048,
+                       bvh_max_leaf_size: int = 4,
+                       stats: dict | None = None) -> Scene:
+    """Attach acceleration structures when the scene is big enough to beat
     brute force (accel: "auto" | "brute" | "bvh", RenderConfig.accelerator;
     "auto" attaches above brute_force_max_tris primitives).
 
-    The JAX package attaches two structures built from the reference BVH
-    algorithm: BVHArrays (its CPU path's escape-link walk) and the cluster
-    tables.  The port attaches the flat cluster tables only; `bvh` stays
-    None (and the BVH's leaf size is no argument) until BVHArrays is
-    ported.  The tables are built on the host and placed on the scene's
-    device.  Which kernel a launch takes is ops/intersect.py kernel_route's
-    choice (clusters above 8,192 triangles), whatever the threshold here.
+    Two structures are built from the same reference BVH algorithm, as in
+    the JAX package: BVHArrays (scene/bvh.py build_bvh, leaves of at most
+    bvh_max_leaf_size primitives), which the escape-link walk reads, and
+    the flat cluster tables of the clustered kernel.  Each is built on the
+    host, by the native builder where g++ is on the PATH (else numpy), and
+    placed on the scene's device; one already attached is kept.  Which
+    route a launch takes is ops/intersect.py kernel_route's choice
+    (clusters above 8,192 triangles; the walk above 131,072 triangles when
+    no clusters are attached), whatever the threshold here.
+
+    stats: a dict that receives the host seconds of the two builds
+    ("bvh_build", "clusters") and the builder that ran ("builder").
     """
+    from bidirectional_pathtracing_tpu_torch.scene.bvh import (
+        build_bvh, builder_name)
     if accel not in ("auto", "brute", "bvh"):
         raise ValueError(f"unknown accelerator {accel!r}")
     g = scene.geometry
     want = accel == "bvh" or (accel == "auto" and
                               g.num_tris + g.num_spheres > brute_force_max_tris)
-    if not want or scene.clusters is not None:
+    stats = {} if stats is None else stats
+    stats.update(bvh_build=0.0, clusters=0.0, builder=None)
+    if not want:
         return scene
-    return scene._replace(clusters=build_clusters(g, device=scene.device))
+    stats["builder"] = builder_name()
+    t0 = time.perf_counter()
+    if scene.bvh is None:
+        scene = scene._replace(bvh=build_bvh(
+            g, max_leaf_size=bvh_max_leaf_size, device=scene.device))
+    t1 = time.perf_counter()
+    if scene.clusters is None:
+        scene = scene._replace(clusters=build_clusters(
+            g, device=scene.device))
+    stats.update(bvh_build=t1 - t0, clusters=time.perf_counter() - t1)
+    return scene
 
 
 def build_scene(scene_info: C.SceneInfo, screen_w: int, screen_h: int,
                 lens_radius: float = 0.0, focal_distance: float = 4.7,
                 accel: str = "auto", brute_force_max_tris: int = 2048,
-                mesh_ops: tuple = (), mesh_ops_min_tris: int = 0,
-                device="cuda"):
-    """Flatten SceneInfo to a Scene on `device`, with the cluster tables
-    attached by attach_accelerator's rule.
+                bvh_max_leaf_size: int = 4, mesh_ops: tuple = (),
+                mesh_ops_min_tris: int = 0, device="cuda"):
+    """Flatten SceneInfo to a Scene on `device`, with the BVH and the
+    cluster tables attached by attach_accelerator's rule.
 
     mesh_ops: sequence of "upsample" / "downsample" / "resample" applied to
     every polymesh before triangulation (the reference's EDIT-mode u/d/i
@@ -124,9 +145,11 @@ def build_scene(scene_info: C.SceneInfo, screen_w: int, screen_h: int,
     walls, whose open boundaries would shrink under Loop subdivision.
 
     Returns (scene, aux) where aux carries host-side metadata (names, bbox,
-    the material records, the camera's orbit state) and "seconds": the
-    host seconds of the mesh ops, of the rest of the flattening, of the
-    cluster build and of the upload to `device`.
+    the material records, the camera's orbit state), "seconds": the host
+    seconds of the mesh ops, of the rest of the flattening, of the BVH
+    build, of the cluster build and of the upload to `device`, and
+    "builder": the BVH builder that ran ("native", "numpy", or None when
+    nothing was built).
     """
     t_start = time.perf_counter()
     t_ops = 0.0
@@ -238,13 +261,18 @@ def build_scene(scene_info: C.SceneInfo, screen_w: int, screen_h: int,
                   lights=make_lights(lights, device=device),
                   camera=camera)
     t_clusters = time.perf_counter()
-    scene = attach_accelerator(scene, accel, brute_force_max_tris)
+    built = {}
+    scene = attach_accelerator(scene, accel, brute_force_max_tris,
+                               bvh_max_leaf_size, stats=built)
     t_upload = time.perf_counter()
-    clusters = scene.clusters
-    scene = scene._replace(
-        geometry=Geometry(*[a.to(device) for a in scene.geometry]),
-        clusters=None if clusters is None else type(clusters)(
-            *[a.to(device) for a in clusters]))
+
+    def to_device(part):
+        return None if part is None else type(part)(
+            *[a.to(device) for a in part])
+
+    scene = scene._replace(geometry=to_device(scene.geometry),
+                           bvh=to_device(scene.bvh),
+                           clusters=to_device(scene.clusters))
     if scene.device.type == "cuda":
         torch.cuda.synchronize(scene.device)
     t_end = time.perf_counter()
@@ -257,8 +285,10 @@ def build_scene(scene_info: C.SceneInfo, screen_w: int, screen_h: int,
         "orbit": orbit,
         "seconds": {"mesh_ops": t_ops,
                     "flatten": t_clusters - t_start - t_ops,
-                    "clusters": t_upload - t_clusters,
+                    "bvh_build": built["bvh_build"],
+                    "clusters": built["clusters"],
                     "upload": t_end - t_upload},
+        "builder": built["builder"],
     }
     return scene, aux
 

@@ -1,20 +1,95 @@
-"""Host-side BVH builder (numpy), the cluster cut's source.
+"""BVH construction (host-side) and flattening for the escape-link walk.
 
-A copy of _build_numpy in bidirectional_pathtracing_tpu/scene/bvh.py
-(:58-156): the reference's recursive spatial-midpoint split (reference
-src/scene/bvh.cpp:51-129) or a 16-bin SAH split, leaves of at most
-max_leaf_size primitives, linearised in pre-order with escape links (node
-i's subtree occupies [i, escape[i])).  scene/clusters.py cuts its leaves
-into the clustered kernel's tables.
+A port of bidirectional_pathtracing_tpu/scene/bvh.py: _primitive_bounds
+(:21-33), build_bvh (:36-56) and _build_numpy (:58-156).  The build
+mirrors the reference algorithm (reference src/scene/bvh.cpp:51-129):
+recursive spatial-midpoint split on the largest-extent centroid axis, with
+a median-split fallback when all centroids land on one side, leaves up to
+max_leaf_size (default 4, bvh.h:61), or a 16-bin SAH split for the cluster
+cut (scene/clusters.py).  The tree is linearised in pre-order with escape
+links: node i's subtree occupies [i, escape[i]), so the walk needs no
+stack (ops/intersect.py intersect_bvh, ops/intersect_bvh.py).
 
-Not ported yet (ROADMAP A1): BVHArrays, build_bvh and the escape-link walk
-intersect_bvh (the JAX package's CPU path), and the native C++ builder
-(ops/native/); the port builds with this numpy copy only.
+build_nodes runs the native C++ builder (ops/native.py, csrc/
+bvh_builder.cpp) where g++ is on the PATH, else the numpy copy below
+(builder_name() says which, and the callers record it); the two give the
+same tree bit for bit.  A failed native build raises; it does not fall
+back.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from bidirectional_pathtracing_tpu_torch.scene.types import BVHArrays
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _primitive_bounds(geom):
+    """(lo [P,3], hi [P,3] float64, global ids [P] int32) of the valid
+    triangles then the valid spheres of a Geometry (torch or numpy)."""
+    tp = _host(geom.tri_p).astype(np.float64)
+    tv = _host(geom.tri_valid).astype(bool)
+    sc = _host(geom.sph_c).astype(np.float64)
+    sr = _host(geom.sph_r).astype(np.float64)
+    sv = _host(geom.sph_valid).astype(bool)
+    lo = np.concatenate([tp.min(axis=1), sc - sr[:, None]], axis=0)
+    hi = np.concatenate([tp.max(axis=1), sc + sr[:, None]], axis=0)
+    valid = np.concatenate([tv, sv])
+    ids = np.arange(lo.shape[0], dtype=np.int32)
+    return lo[valid], hi[valid], ids[valid]
+
+
+def builder_name() -> str:
+    """The builder build_nodes takes here: "native" where the native
+    builder can be built (g++ on the PATH), else "numpy"."""
+    from bidirectional_pathtracing_tpu_torch.ops import native
+    return "native" if native.available() else "numpy"
+
+
+def build_nodes(lo, hi, max_leaf_size: int, sah: bool = False):
+    """The flat node arrays of _build_numpy over primitive bounds lo, hi
+    [n, 3] float64, by the native builder where g++ is on the PATH, else
+    by _build_numpy (builder_name() says which)."""
+    if builder_name() == "native":
+        from bidirectional_pathtracing_tpu_torch.ops.native import (
+            bvh_build_native)
+        return bvh_build_native(lo, hi, max_leaf_size, sah=sah)
+    return _build_numpy(lo, hi, max_leaf_size, sah=sah)
+
+
+def build_bvh(geom, max_leaf_size: int = 4, device=None) -> BVHArrays:
+    """The reference BVH (midpoint split, leaves of at most max_leaf_size)
+    of a Geometry's valid primitives, as BVHArrays on `device` (default:
+    the device of geom.tri_p, else the CPU), built by build_nodes."""
+    if max_leaf_size < 1:
+        raise ValueError(f"max_leaf_size {max_leaf_size}: a leaf holds at "
+                         "least one primitive")
+    if device is None:
+        device = geom.tri_p.device if isinstance(
+            geom.tri_p, torch.Tensor) else "cpu"
+    lo, hi, ids = _primitive_bounds(geom)
+    (bounds_lo, bounds_hi, is_leaf, prim_start, prim_count, escape,
+     order) = build_nodes(lo, hi, max_leaf_size)
+
+    def conv(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    return BVHArrays(
+        bounds_lo=conv(bounds_lo, np.float32),
+        bounds_hi=conv(bounds_hi, np.float32),
+        is_leaf=conv(is_leaf, bool),
+        prim_start=conv(prim_start, np.int32),
+        prim_count=conv(prim_count, np.int32),
+        escape=conv(escape, np.int32),
+        prim_order=conv(ids[order], np.int32),
+    )
 
 
 def _build_numpy(lo, hi, max_leaf_size, sah: bool = False):

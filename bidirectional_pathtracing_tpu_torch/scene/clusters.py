@@ -7,9 +7,10 @@ traversal); the kernel walks a shallow two-level cut of the same BVH
 instead:
 
   - a BVH with max_leaf_size = CLUSTER_SIZE is built on the host
-    (scene/bvh.py, SAH split by default, as in the JAX package); every
-    leaf becomes a "cluster" of up to CLUSTER_SIZE triangles with a tight
-    AABB,
+    (scene/bvh.py build_nodes: the native C++ builder first, as in the
+    JAX package (:150-153), numpy where g++ is missing; SAH split by
+    default); every leaf becomes a "cluster" of up to CLUSTER_SIZE
+    triangles with a tight AABB,
   - clusters are packed contiguously; padding slots hold zero triangles,
     which Möller–Trumbore can never hit,
   - consecutive clusters (spatially coherent in BVH pre-order) are grouped
@@ -60,10 +61,18 @@ def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _host(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+def _tri_bounds(geom):
+    """(lo, hi [n, 3] float64, global ids [n] int32, tri_p [T, 3, 3]
+    float32) of a Geometry's valid triangles, the input of the cut's BVH
+    build; None when there is none."""
+    tri_p = bvh_mod._host(geom.tri_p).astype(np.float32)
+    tv = bvh_mod._host(geom.tri_valid).astype(bool)
+    ids = np.arange(tri_p.shape[0], dtype=np.int32)[tv]
+    if ids.size == 0:
+        return None
+    lo = tri_p[tv].min(axis=1).astype(np.float64)
+    hi = tri_p[tv].max(axis=1).astype(np.float64)
+    return lo, hi, ids, tri_p
 
 
 def _leaf_cut(geom, leaf_size: int, build: str = "sah"):
@@ -72,15 +81,12 @@ def _leaf_cut(geom, leaf_size: int, build: str = "sah"):
     build: "midpoint" | "sah"."""
     if build not in ("midpoint", "sah"):
         raise ValueError(f"unknown cluster build {build!r}")
-    tri_p = _host(geom.tri_p).astype(np.float32)
-    tv = _host(geom.tri_valid).astype(bool)
-    ids = np.arange(tri_p.shape[0], dtype=np.int32)[tv]
-    if ids.size == 0:
+    tb = _tri_bounds(geom)
+    if tb is None:
         return None
-    lo = tri_p[tv].min(axis=1).astype(np.float64)
-    hi = tri_p[tv].max(axis=1).astype(np.float64)
+    lo, hi, ids, tri_p = tb
     (bounds_lo, bounds_hi, is_leaf, prim_start, prim_count, _escape,
-     order) = bvh_mod._build_numpy(lo, hi, leaf_size, sah=build == "sah")
+     order) = bvh_mod.build_nodes(lo, hi, leaf_size, sah=build == "sah")
     gids = ids[order]  # leaf-ordered global triangle ids
     leaves = np.where(is_leaf)[0]
     return leaves, bounds_lo, bounds_hi, prim_start, prim_count, gids, tri_p

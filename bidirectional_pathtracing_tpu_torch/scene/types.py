@@ -22,7 +22,8 @@ envmap converts leaf by leaf.
 The builders put their tensors on the card unless the caller names another
 device (device="cpu" in the CPU tests); without a card they raise.
 
-Not ported yet: BVHArrays (ROADMAP).
+BVHArrays (scene/bvh.py build_bvh) is the flattened BVH the escape-link
+walk reads (ops/intersect.py intersect_bvh, ops/intersect_bvh.py).
 """
 
 from __future__ import annotations
@@ -127,6 +128,24 @@ class Camera(NamedTuple):
     fclip: torch.Tensor    # f32 []
     lens_radius: torch.Tensor     # f32 []
     focal_distance: torch.Tensor  # f32 []
+
+
+class BVHArrays(NamedTuple):
+    """Flattened BVH in pre-order with escape links (stackless traversal);
+    a copy of the JAX package's scene/types.py BVHArrays (:129-143).
+
+    Built host-side with the reference algorithm (spatial-midpoint split on
+    the largest-extent centroid axis, leaves <= max_leaf_size; bvh.cpp:51-129)
+    then linearised: node i's subtree occupies [i, escape[i]).
+    """
+
+    bounds_lo: torch.Tensor   # f32 [N,3]
+    bounds_hi: torch.Tensor   # f32 [N,3]
+    is_leaf: torch.Tensor     # bool [N]
+    prim_start: torch.Tensor  # int32 [N]  index into prim_order
+    prim_count: torch.Tensor  # int32 [N]
+    escape: torch.Tensor      # int32 [N]  next pre-order node when skipping
+    prim_order: torch.Tensor  # int32 [P]  global prim ids in leaf order
 
 
 class Envmap(NamedTuple):

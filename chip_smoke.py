@@ -9,8 +9,10 @@ a zero exit):
   0. environment: torch / CUDA versions and the card's name and power
      limit; a CUDA device is required.
   1. build the kernels (csrc/brute_hit.cu, csrc/clustered_hit.cu,
-     csrc/mt_bench.cu) from the sources in this checkout, one nvcc each,
-     started together, and print what ptxas reports for each.
+     csrc/mt_bench.cu, csrc/bvh_walk.cu) from the sources in this
+     checkout, one nvcc each, started together, and print what ptxas
+     reports for each; build the native BVH builder (csrc/bvh_builder.cpp,
+     g++).
   2. the brute-force kernel K1 against its plain torch version on the card,
      closest hit (t and prim bitwise equal on every ray) and any hit, on
      the Cornell box (12 triangles, 2 spheres) and an 8,192-triangle soup
@@ -128,6 +130,42 @@ a zero exit):
      gates and tests/test_parallel.py's rule (at most 0.2 % of elements
      beyond 1e-6 eye / 1e-5 light, none beyond 1e-3); samples/s of the
      one-process form and of the two processes, each rank's launches.
+ 12. the BVH (scene/bvh.py), its walk kernel (csrc/bvh_walk.cu, the
+     counterpart of the JAX walk's lax.while_loop), the visualizer and the
+     viewer, on the mesh box written at level 4 and loaded with --upsample
+     2 (164,032 triangles; the clusterless route is that scene with its
+     clusters detached, scene._replace(clusters=None)):
+       a. the load (its BVH builder must be the native one); its BVH
+          equal to build_bvh's; the native builder's node arrays and
+          numpy's (_build_numpy) bitwise equal on the tree's bounds and on
+          the cluster cut's (equal nodes give equal BVHArrays and cluster
+          tables); each build's seconds;
+       b. the rays of one 480x360 d5 BDPT pass through K2 (a recording
+          intersector): the walk kernel against its plain version
+          (ops/intersect.py intersect_bvh) on the 172,800 camera rays and
+          the 172,800 first-bounce rays (t, valid, prim, mat bitwise, n
+          within 1e-6) and on the pass's 6,220,800-segment shadow batch
+          (any hit, bitwise), the plain version's work counted (nodes,
+          triangle and sphere tests) for the bound;
+       c. the walk kernel against K2 on the same rays: closest hit valid
+          and prim equal on >= 99.99 %, t rtol 1e-6 where both hit; any
+          hit over the shadow batch at most 0.01 % off outside the
+          window-edge band (phase 4's gate; the band from the walk's
+          open-window closest t); both kernels timed at 172,800 and
+          6,220,800 rays (device_ms, call_ms);
+       d. 480x360 d5 8 spp BDPT of the clusterless box through the walk
+          kernel after a warm-up pass, every count zeroed before it: 11
+          walk launches a pass and none of K1 or K2; samples/s; the frame
+          against the same render through K2 (phase 3a's gates);
+       e. cli.main with --visualize-bvh llr --bvh-rays 500 on the file at
+          480x360: <out>_bvh.png of that size; the selected subtree covers
+          pixels; the primary-ray prim map through K2 and through the walk
+          kernel equal on >= 99.99 % of pixels;
+       f. viewer.py: 8 BDPT ticks of the Cornell box (K1) and 4 of the
+          164k box (K2) at 480x360 d5, each running mean equal to render()
+          at the same seed and spp (rtol 1e-5, atol 1e-6), 11 launches a
+          tick; run_http on a free localhost port: /frame.png decodes to
+          480x360, /key?k=v switches to VISUALIZE, /key?k=q ends it.
 
 Kernel times (utils/timing.py): device_ms is the kernel's own duration
 on the device, from torch.profiler's kernel records (or CUDA events
@@ -158,7 +196,14 @@ PyTorch call computes a closest hit.  The K1 and K2 lines also carry
 pt_launches, the launches of phase 8d's PT run of their cell,
 cli_launches, those of phase 9's runs, grad_launches, those of phase 10's
 gradient runs (a backward launches no kernel), and mp_launches, each
-rank's in phase 11.
+rank's in phase 11.  The walk kernel's line (bvh_walk, phase 12) counts
+its work from the plain version's walk of the same rays: a slab test per
+node visited, a Möller–Trumbore per triangle tested and a sphere test per
+sphere tested; its bytes are the rays, its outputs (t, valid, n, mat,
+prim: 25 B a ray, or the any hit's 1 B) and the tree's and the geometry's
+tables, each read once.  It replaces no Pallas kernel: "replaces" names
+the JAX walk's lax.while_loop.  Its launches are those of phase 12d's
+render.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and before that one JSON line
@@ -196,6 +241,7 @@ GOLDEN_DAE = os.path.join(GOLDEN_DIR,
                           "dae_cbox_spheres_bdpt_48x36_d5_8spp_seed0.npz")
 DAE_LEVEL = 4                                  # icospheres of the 9a file
 KERNEL_CHECK = os.path.join(REPO, "artifacts", "GPU_KERNEL_CHECK.json")
+KERNELS = ("brute_hit", "clustered_hit", "mt_bench", "bvh_walk")
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 flop/s (no tensor
 # cores), dense TF32 tensor-core flop/s; the per-test operation counts of
 # the bounds
@@ -749,7 +795,7 @@ def phase7_env(dev, gpu, mesh):
         cfg8 = RenderConfig(spp=8, max_ray_depth=DEPTH, width=W, height=H,
                             integrator="bdpt", seed=0, samples_per_chunk=8)
         torch.cuda.synchronize()
-        ib.brute_hit.launches = icl.clustered_hit.launches = 0
+        zero_counts()
         res = render(sc, cfg8)
         k1, k2 = ib.brute_hit.launches, icl.clustered_hit.launches
         st = res.stats
@@ -816,7 +862,7 @@ def phase8_pt(dev, gpu, mesh):
         """render() with both kernels' counts set to 0 just before it and
         read just after."""
         torch.cuda.synchronize()
-        ib.brute_hit.launches = icl.clustered_hit.launches = 0
+        zero_counts()
         res = render(scene, cfg, **kw)
         return res, ib.brute_hit.launches, icl.clustered_hit.launches
 
@@ -1024,7 +1070,7 @@ def phase9_cli(gpu):
         out = os.path.join(tmp, f"{label}.png")
         stats = os.path.join(tmp, f"{label}.json")
         torch.cuda.synchronize()
-        ib.brute_hit.launches = icl.clustered_hit.launches = 0
+        zero_counts()
         render_mod.render = recording
         t0 = time.perf_counter()
         try:
@@ -1134,7 +1180,7 @@ def grad_case(label, scene, cfg, names, gpu, plain_cfg=None,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     base_mem = torch.cuda.memory_allocated(dev)
-    ib.brute_hit.launches = icl.clustered_hit.launches = 0
+    zero_counts()
     loss, grads, secs = gc.gradients(scene, cfg, key, names)
     rec = {"loss": loss, "forward_s": secs["forward"],
            "backward_s": secs["backward"],
@@ -1228,11 +1274,11 @@ def phase10_grad(dev, gpu, mesh):
               f"phase{k}: K1 / K2 launches")
     # 10d: the example in-process, every hit through K1
     from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
-    ib.brute_hit.launches = 0
+    zero_counts()
     env = inverse_rendering.run_envlight(argparse.Namespace(
         steps=150, lr=0.03, size=[40, 30], device=dev.type))
     k1_env = ib.brute_hit.launches
-    ib.brute_hit.launches = 0
+    zero_counts()
     boxr = inverse_rendering.run_box(argparse.Namespace(
         steps=10, lr=0.05, size=[W, H], device=dev.type),
         assert_converged=False)
@@ -1372,7 +1418,7 @@ def phase11_multiprocess(dev, gpu, mesh):
             grid = f"dp{dp}xsp{sp}"
             ranks = run_two_ranks(name, sp, tmp, dev.type)
             torch.cuda.synchronize()
-            ib.brute_hit.launches = icl.clustered_hit.launches = 0
+            zero_counts()
             t0 = time.perf_counter()
             one = render_frame_sharded(scene, cfg, dp=dp, sp=sp)
             torch.cuda.synchronize()
@@ -1417,6 +1463,414 @@ def phase11_multiprocess(dev, gpu, mesh):
     return detail, launches
 
 
+# --- phase 12: the BVH, its walk kernel, the visualizer and the viewer ------
+
+VIS_NAV, VIS_RAYS = "llr", 500                 # 12e's walk and ray stride
+VIEW_TICKS = {"cornell": 8, "meshbox": 4}      # 12f's ticks a scene
+
+
+def zero_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
+    from bidirectional_pathtracing_tpu_torch.ops import intersect_bvh as ibv
+    from bidirectional_pathtracing_tpu_torch.ops import (
+        intersect_clustered as icl)
+    ib.brute_hit.launches = icl.clustered_hit.launches = 0
+    ibv.bvh_walk.launches = 0
+
+
+def counts():
+    """(K1, K2, walk) launch counts."""
+    from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
+    from bidirectional_pathtracing_tpu_torch.ops import intersect_bvh as ibv
+    from bidirectional_pathtracing_tpu_torch.ops import (
+        intersect_clustered as icl)
+    return (ib.brute_hit.launches, icl.clustered_hit.launches,
+            ibv.bvh_walk.launches)
+
+
+def walk_work(geom, bvh, stats, r, any_hit):
+    """(bytes, operations) of the walk kernel over r rays whose plain walk
+    did `stats` (ops/intersect.py intersect_bvh): the rays in (o, d,
+    min_t, max_t: 32 B), the outputs (25 B a ray, 1 B for an any hit), the
+    tree's and the geometry's tables that the variant reads, each once:
+    the vertices and the spheres' centres and radii (36 B a triangle, 16 B
+    a sphere), and for a closest hit also the vertex normals and the
+    materials (40 B a triangle, 4 B a sphere), which the any hit never
+    reads; a slab test per node visited, a Möller–Trumbore per triangle
+    and a sphere test per sphere tested."""
+    n_nodes, n_order = bvh.is_leaf.shape[0], bvh.prim_order.shape[0]
+    per_tri, per_sph = (36, 16) if any_hit else (76, 20)
+    n_bytes = (r * (32 + (1 if any_hit else 25)) + n_nodes * 37
+               + n_order * 4 + geom.num_tris * per_tri
+               + geom.num_spheres * per_sph)
+    ops = (stats["nodes"] * SLAB_FLOPS + stats["tri_tests"] * MT_FLOPS
+           + stats["sphere_tests"] * SPHERE_FLOPS)
+    return n_bytes, ops
+
+
+def hold_walk_vs_plain(label, got, ref):
+    """Bitwise gate of a walk-kernel closest hit against the plain walk's:
+    t, valid, prim, mat equal on every ray, n within 1e-6."""
+    import torch
+    for f in ("t", "valid", "prim", "mat"):
+        bad = int((getattr(got, f) != getattr(ref, f)).sum())
+        check(bad == 0, f"{label}: {bad} rays differ from the plain walk in "
+              f"{f} (bitwise gate)")
+    n_err = float((got.n - ref.n).abs().max()) if got.n.numel() else 0.0
+    check(n_err <= 1e-6, f"{label}: normal differs by {n_err}")
+    return {"rays": int(got.t.shape[0]), "hits": int(ref.valid.sum()),
+            "differ": 0, "n_max_abs": n_err}
+
+
+def phase12_bvh(dev, gpu):
+    """Phase 12 (see the module docstring).  Returns (detail, the walk
+    kernel's times and bounds, its launches on the main path)."""
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+    from bidirectional_pathtracing_tpu_torch import cli
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.core.math import INF_D
+    from bidirectional_pathtracing_tpu_torch.ops import intersect as isx
+    from bidirectional_pathtracing_tpu_torch.ops import intersect_bvh as ibv
+    from bidirectional_pathtracing_tpu_torch.ops import (
+        intersect_clustered as icl)
+    from bidirectional_pathtracing_tpu_torch.ops import native
+    from bidirectional_pathtracing_tpu_torch.scene import bvh as bvh_mod
+    from bidirectional_pathtracing_tpu_torch.scene import (
+        clusters as clusters_mod)
+    from bidirectional_pathtracing_tpu_torch.scene.build import load_scene
+    from bidirectional_pathtracing_tpu_torch.scene.bvh import build_bvh
+    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+        make_cornell_box, write_cornell_box_dae)
+    from bidirectional_pathtracing_tpu_torch.tools.rays import per_ray
+    from bidirectional_pathtracing_tpu_torch.utils import bvh_vis
+    from bidirectional_pathtracing_tpu_torch.utils.png import read_png
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+    from bidirectional_pathtracing_tpu_torch.utils.timing import (
+        call_ms, device_ms)
+    from bidirectional_pathtracing_tpu_torch.viewer import (
+        VISUALIZE_MODE, Viewer)
+
+    detail = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bvh_") as tmp:
+        # --- 12a: the load and the builds ---------------------------------
+        dae = os.path.join(tmp, f"cbox_L{DAE_LEVEL}.dae")
+        write_cornell_box_dae(dae, DAE_LEVEL)
+        t0 = time.perf_counter()
+        scene, aux = load_scene(dae, W, H, mesh_ops=("upsample", "upsample"),
+                                device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        g, cl = scene.geometry, scene.clusters
+        check(g.num_tris == UPSAMPLED_TRIS, f"phase12a: {g.num_tris} tris")
+        check(aux["builder"] == "native", f"phase12a: the load built with "
+              f"the {aux['builder']} builder, not the native one")
+        check(scene.bvh is not None and cl is not None,
+              "phase12a: the BVH or the clusters were not attached")
+        # the native builder against numpy on the same bounds: the tree's
+        # (midpoint, leaves of 4) and the cluster cut's (SAH, leaves of
+        # CLUSTER_SIZE); equal node arrays give equal BVHArrays and equal
+        # cluster tables
+        bvh = scene.bvh
+        check(all(torch.equal(a, b) for a, b in zip(build_bvh(g), bvh)),
+              "phase12a: the load's BVH is not build_bvh's")
+        lo, hi, _ = bvh_mod._primitive_bounds(g)
+        cut_lo, cut_hi, _, _ = clusters_mod._tri_bounds(g)
+        secs = {}
+        for label, args, sah in (("bvh", (lo, hi, 4), False),
+                                 ("cut", (cut_lo, cut_hi,
+                                          clusters_mod.CLUSTER_SIZE), True)):
+            nodes = {}
+            for builder, fn in (("native", native.bvh_build_native),
+                                ("numpy", bvh_mod._build_numpy)):
+                t0 = time.perf_counter()
+                nodes[builder] = fn(*args, sah=sah)
+                secs[f"{label}_{builder}_s"] = time.perf_counter() - t0
+            for a, b in zip(nodes["native"], nodes["numpy"]):
+                check(a.dtype == b.dtype and np.array_equal(a, b),
+                      f"phase12a: the native and numpy {label} builds differ")
+        detail["12a"] = {
+            "num_tris": g.num_tris, "nodes": bvh.is_leaf.shape[0],
+            "leaves": int(bvh.is_leaf.sum()), "load_s": load_s,
+            "load_seconds": aux["seconds"], "builder": aux["builder"],
+            **secs, "bitwise_equal": True}
+        print(f"[phase12a] {json.dumps(detail['12a'])} ({gpu})")
+
+        # --- 12b: the rays of one pass; the walk kernel against plain -----
+        calls = {"closest": [], "occluded": []}
+
+        def keep(kind, fn):
+            def run(sc, o, d, lo, hi):
+                if len(calls[kind]) < 2:
+                    calls[kind].append((o.clone(), d.clone(), per_ray(lo, o),
+                                        per_ray(hi, o)))
+                return fn(sc, o, d, lo, hi)
+            return run
+
+        recording = isx.Intersector(keep("closest", isx.DISPATCH.closest),
+                                    keep("occluded", isx.DISPATCH.occluded))
+        render(scene, RenderConfig(spp=1, max_ray_depth=DEPTH, width=W,
+                                   height=H, seed=2), isect=recording)
+        pops = {"camera": calls["closest"][0], "bounce": calls["closest"][1],
+                "shadow": calls["occluded"][0]}
+        del calls
+        check(pops["camera"][0].shape[0] == WALK_RAYS
+              and pops["shadow"][0].shape[0] == SHADOW_RAYS,
+              "phase12b: the pass's launch sizes")
+        plain, work, hits, max_err = {}, {}, {}, 0.0
+        for name, (o, d, lo, hi) in pops.items():
+            any_hit = name == "shadow"
+            st = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = isx.intersect_bvh(g, bvh, o, d, lo, hi, any_hit=any_hit,
+                                    stats=st)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            got = ibv.bvh_walk(g, bvh, o, d, lo, hi, any_hit=any_hit)
+            if any_hit:
+                bad = int((got != ref).sum())
+                check(bad == 0, f"phase12b shadow: {bad} segments differ "
+                      "from the plain walk's any hit (bitwise gate)")
+                rec = {"rays": int(o.shape[0]), "occluded": int(ref.sum()),
+                       "differ": 0}
+            else:
+                rec = hold_walk_vs_plain(f"phase12b {name}", got, ref)
+                if bool(ref.valid.any()):
+                    max_err = max(max_err, float(
+                        (got.t - ref.t).abs()[ref.valid].max()))
+            hits[name] = got
+            rec.update(plain_ms=plain_ms, **st)
+            plain[name], work[name] = rec, st
+            print(f"[phase12b] {name}: {json.dumps(rec)} ({gpu})")
+        detail["12b"] = plain
+
+        # --- 12c: the walk kernel against K2, both timed ------------------
+        vs_k2 = {}
+        for name in ("camera", "bounce"):
+            o, d, lo, hi = pops[name]
+            k2 = icl.intersect_clustered(g, cl, o, d, lo, hi)
+            got = hits[name]
+            r = o.shape[0]
+            bad = (k2.valid != got.valid) | (k2.prim != got.prim)
+            agree = got.valid & ~bad
+            rel = ((k2.t - got.t).abs() / got.t.abs().clamp_min(1e-30))[agree]
+            t_rel = float(rel.max()) if bool(agree.any()) else 0.0
+            rec = {"rays": r, "hits": int(got.valid.sum()),
+                   "disagree": int(bad.sum()), "t_max_rel": t_rel}
+            check(int(bad.sum()) <= 1e-4 * r, f"phase12c {name}: "
+                  f"{int(bad.sum())} of {r} rays disagree with K2")
+            check(t_rel <= 1e-6, f"phase12c {name}: t rel err {t_rel}")
+            vs_k2[name] = rec
+            print(f"[phase12c] {name} walk vs K2: {json.dumps(rec)}")
+        o, d, lo, hi = pops["shadow"]
+        occ_k2 = icl.occluded_clustered(g, cl, o, d, lo, hi)
+        t_open = ibv.bvh_walk(g, bvh, o, d, lo, torch.full_like(hi, INF_D)).t
+        edge = torch.from_numpy(edge_band(
+            t_open.cpu().numpy(), lo.cpu().numpy(), hi.cpu().numpy())).to(dev)
+        bad = int(((occ_k2 != hits["shadow"]) & ~edge).sum())
+        vs_k2["shadow"] = {"rays": int(o.shape[0]),
+                           "occluded": int(hits["shadow"].sum()),
+                           "occluded_k2": int(occ_k2.sum()),
+                           "disagree": bad,
+                           "edge_excluded": int(edge.sum()),
+                           "disagree_in_band": int(
+                               ((occ_k2 != hits["shadow"]) & edge).sum())}
+        print(f"[phase12c] shadow walk vs K2: {json.dumps(vs_k2['shadow'])}")
+        check(bad <= 1e-4 * o.shape[0], f"phase12c shadow: {bad} any-hit "
+              "disagreements with K2 outside the window-edge band")
+        del occ_k2, t_open, edge, hits
+        detail["12c"] = vs_k2
+        times = {}
+        for label, name, any_hit in (("walk_172800", "bounce", False),
+                                     ("shadow_6220800", "shadow", True)):
+            o, d, lo, hi = pops[name]
+
+            def walk():
+                return ibv.bvh_walk(g, bvh, o, d, lo, hi, any_hit)
+
+            def k2():
+                return icl.clustered_hit(cl, o, d, lo, hi, any_hit)
+
+            rec = {"rays": int(o.shape[0]),
+                   "call_ms": min(call_ms(walk, 5), call_ms(walk, 5)),
+                   "k2_call_ms": min(call_ms(k2, 5), call_ms(k2, 5))}
+            rec["device_ms"], rec["device_source"] = device_ms(
+                walk, "bvh_walk", 5)
+            rec["k2_device_ms"], rec["k2_device_source"] = device_ms(
+                k2, "clustered_hit", 5)
+            rec["plain_ms"] = plain[name]["plain_ms"]
+            rec["bound"] = bound_ms(*walk_work(g, bvh, work[name],
+                                               o.shape[0], any_hit))
+            rec["work"] = work[name]
+            times[label] = rec
+            print(f"[phase12c] time {label}: {json.dumps(rec)} ({gpu})")
+        detail["12c_times"] = times
+        del pops
+
+        # --- 12d: the clusterless box through the walk kernel -------------
+        nocl = scene._replace(clusters=None)
+        check(isx.kernel_route(nocl) == "bvh", "phase12d: route")
+        render(nocl, RenderConfig(spp=1, max_ray_depth=DEPTH, width=W,
+                                  height=H, seed=1))        # warm-up pass
+        cfg8 = RenderConfig(spp=8, max_ray_depth=DEPTH, width=W, height=H,
+                            seed=0, samples_per_chunk=8)
+        torch.cuda.synchronize()
+        zero_counts()
+        r_w = render(nocl, cfg8)
+        k1, k2n, walk_launches = counts()
+        check((k1, k2n, walk_launches) == (0, 0, 8 * BDPT_PER_PASS["area"]),
+              f"phase12d: K1, K2, walk launches {(k1, k2n, walk_launches)}")
+        r_k = render(scene, cfg8)
+        rel_d, blk_d = render_vs("phase12d", r_k.combined, r_w.combined,
+                                 1e-3, 0.01)
+        st = r_w.stats
+        detail["12d"] = {"samples_per_s": st["camera_samples_per_s"],
+                         "mrays_per_s": st["mrays_per_s"],
+                         "wall_s": st["wall_time_s"],
+                         "k2_samples_per_s":
+                             r_k.stats["camera_samples_per_s"],
+                         "walk_launches": walk_launches, "rel": rel_d,
+                         "block": blk_d}
+        print(f"[phase12d] clusterless 164k box 480x360 d5 8spp through the "
+              f"walk: {json.dumps(detail['12d'])} ({gpu})")
+        del r_w, r_k
+
+        # --- 12e: the visualizer through the CLI --------------------------
+        out = os.path.join(tmp, "vis.png")
+        t0 = time.perf_counter()
+        cli.main([dae, "-r", str(W), str(H), "-m", str(DEPTH), "-s", "1",
+                  "--upsample", "2", "--visualize-bvh", VIS_NAV,
+                  "--bvh-rays", str(VIS_RAYS), "-f", out])
+        cli_s = time.perf_counter() - t0
+        png = read_png(out[:-4] + "_bvh.png")
+        check(png.shape == (H, W, 4), f"phase12e: png {png.shape}")
+        vis = bvh_vis.BVHVisualizer(scene)
+        vis.navigate(VIS_NAV)
+        sub = vis.subtree_prims(vis.current())
+        ids = np.arange(W * H)
+        maps = {}
+        for label, sc in (("k2", scene), ("walk", nocl)):
+            maps[label] = bvh_vis.primary_hits(sc, sc.camera, ids % W,
+                                               ids // W, W, H)[2]
+        covered = int((np.isin(maps["k2"]["prim"], sub)
+                       & maps["k2"]["valid"]).sum())
+        same = float((maps["k2"]["prim"] == maps["walk"]["prim"]).mean())
+        detail["12e"] = {"node": vis.current(), "subtree_prims": len(sub),
+                         "covered_pixels": covered, "prim_map_equal": same,
+                         "cli_s": cli_s}
+        print(f"[phase12e] {json.dumps(detail['12e'])}")
+        check(covered > 0, "phase12e: the selected subtree covers no pixel")
+        check(same >= 0.9999, f"phase12e: prim maps agree on {same}")
+
+        # --- 12f: the viewer ----------------------------------------------
+        box = make_cornell_box(W, H, sphere_materials=("mirror", "glass"),
+                               device=dev)
+        views, viewers = {}, {}
+        for label, sc in (("cornell", box), ("meshbox", scene)):
+            n = VIEW_TICKS[label]
+            cfg = RenderConfig(spp=n, max_ray_depth=DEPTH, width=W, height=H,
+                               seed=0)
+            v = Viewer(sc, cfg, output=os.path.join(tmp, f"{label}.png"))
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                check(v.tick(), f"phase12f {label}: a tick rendered nothing")
+            tick_s = (time.perf_counter() - t0) / n
+            launches = counts()
+            ref = render(sc, cfg).combined
+            err = float(np.abs(v.frame() - ref).max())
+            ok = bool(np.allclose(v.frame(), ref, rtol=1e-5, atol=1e-6))
+            views[label] = {"ticks": n, "tick_s": tick_s,
+                            "launches": launches, "max_abs_vs_render": err}
+            print(f"[phase12f] viewer {label}: {json.dumps(views[label])} "
+                  f"({gpu})")
+            check(ok, f"phase12f {label}: the running mean differs from "
+                  f"render() by {err}")
+            per = BDPT_PER_PASS["area"] * n
+            want = (per, 0, 0) if label == "cornell" else (0, per, 0)
+            check(launches == want, f"phase12f {label}: launches {launches}")
+            viewers[label] = v
+        v = viewers["cornell"]
+        port = _free_port()
+        server = threading.Thread(
+            target=v.run_http, kwargs={"port": port, "open_msg": False},
+            daemon=True)
+        server.start()
+
+        def get(path):
+            for _ in range(50):
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}{path}",
+                            timeout=60) as resp:
+                        return resp.read()
+                except urllib.error.URLError:
+                    time.sleep(0.1)       # the server is still starting
+            raise PhaseError(f"phase12f: GET {path} failed")
+
+        frames = []
+        for path in ("/frame.png", "/key?k=v", "/frame.png", "/key?k=q"):
+            body = get(path)
+            if path == "/frame.png":
+                f = os.path.join(tmp, f"http{len(frames)}.png")
+                with open(f, "wb") as fh:
+                    fh.write(body)
+                frames.append(read_png(f).shape)
+            elif path == "/key?k=v":
+                check(v.mode == VISUALIZE_MODE,
+                      f"phase12f: /key?k=v left the viewer in {v.mode}")
+        server.join(timeout=60)
+        check(not server.is_alive(), "phase12f: run_http did not end on q")
+        check(frames == [(H, W, 4)] * 2, f"phase12f: /frame.png {frames}")
+        views["http"] = {"frames": frames, "visualize": True}
+        detail["12f"] = views
+    detail["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase12] {detail['seconds']:.1f} s")
+    return detail, times, walk_launches, max_err
+
+
+def walk_kernel_line(times, launches, max_abs_err):
+    """The walk kernel's entry of the kernels line: the shadow batch's
+    times as ms, the 172,800-ray walk under walk_172800_*."""
+    s, w = times["shadow_6220800"], times["walk_172800"]
+    return {
+        "name": "bvh_walk",
+        "route": "cuda",
+        "source": "bidirectional_pathtracing_tpu_torch/csrc/bvh_walk.cu",
+        "replaces": "bidirectional_pathtracing_tpu/ops/intersect.py:270 "
+                    "(intersect_bvh's lax.while_loop, not a Pallas kernel)",
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": s["device_ms"],
+        "device_ms": s["device_ms"],
+        "device_source": s["device_source"],
+        "call_ms": s["call_ms"],
+        "gate": "bitwise",
+        "plain_ms": s["plain_ms"],
+        "bound_ms": s["bound"][0],
+        "bound_by": s["bound"][1],
+        "library_ms": None,
+        "k2_device_ms": s["k2_device_ms"],
+        "k2_call_ms": s["k2_call_ms"],
+        "walk_172800_ms": w["device_ms"],
+        "walk_172800_device_ms": w["device_ms"],
+        "walk_172800_call_ms": w["call_ms"],
+        "walk_172800_plain_ms": w["plain_ms"],
+        "walk_172800_bound_ms": w["bound"][0],
+        "walk_172800_bound_by": w["bound"][1],
+        "walk_172800_k2_device_ms": w["k2_device_ms"],
+        "walk_172800_k2_call_ms": w["k2_call_ms"],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1431,12 +1885,13 @@ def main() -> int:
     print(f"[phase0] gpu: {gpu}")
     from bidirectional_pathtracing_tpu_torch.config import RenderConfig
     from bidirectional_pathtracing_tpu_torch.core.math import INF_D
-    from bidirectional_pathtracing_tpu_torch.ops import _build
+    from bidirectional_pathtracing_tpu_torch.ops import _build, native
     from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
     from bidirectional_pathtracing_tpu_torch.ops import (
         intersect_clustered as icl)
     from bidirectional_pathtracing_tpu_torch.ops.intersect import (
         PLAIN, SORTED)
+    from bidirectional_pathtracing_tpu_torch.scene import bvh as bvh_mod
     from bidirectional_pathtracing_tpu_torch.scene.build import (
         attach_accelerator)
     from bidirectional_pathtracing_tpu_torch.scene.procedural import (
@@ -1452,9 +1907,15 @@ def main() -> int:
 
     # --- phase 1 -----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.load_all(["brute_hit", "clustered_hit", "mt_bench"])
+    _build.load_all(KERNELS)
     print(f"[phase1] built the kernels in {time.perf_counter() - t0:.2f} s")
-    for name in ("brute_hit", "clustered_hit", "mt_bench"):
+    t0 = time.perf_counter()
+    native.get_lib()
+    print(f"[phase1] built the native BVH builder in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(bvh_mod.builder_name() == "native",
+          "phase1: no g++ here: the native BVH builder cannot run")
+    for name in KERNELS:
         info = _build.BUILD_LOG[name]
         print(f"[phase1] {name}: cached={info['cached']} -> "
               f"{os.path.relpath(info['so'], REPO)}")
@@ -1538,9 +1999,10 @@ def main() -> int:
     cfg32 = RenderConfig(spp=32, max_ray_depth=DEPTH, width=W, height=H,
                          integrator="bdpt", seed=0, samples_per_chunk=8)
     torch.cuda.synchronize()
-    ib.brute_hit.launches = icl.clustered_hit.launches = 0
+    zero_counts()
     r32 = render(box, cfg32)
     launches = ib.brute_hit.launches
+    check(counts()[2] == 0, "the Cornell-box path launched the walk")
     st = r32.stats
     check(np.isfinite(r32.combined).all(), "non-finite pixels (32 spp)")
     check(r32.combined.shape == (H, W, 3), "32-spp shape")
@@ -1563,7 +2025,7 @@ def main() -> int:
     check(mcl is not None, "attach_accelerator attached no clusters")
     print(f"[phase4] mesh box L{MESH_LEVEL}: {mesh.geometry.num_tris} "
           f"triangles, {mcl.n_clusters} clusters, {mcl.n_blocks} blocks; "
-          f"scene {t1 - t0:.2f} s, cluster build {t2 - t1:.2f} s")
+          f"scene {t1 - t0:.2f} s, BVH and cluster build {t2 - t1:.2f} s")
     check(mesh.geometry.num_tris == 163_852, "mesh box triangle count")
     soup2 = attach_accelerator(soup_scene(dev, n_tris=K2_RAYS, seed=4))
     print(f"[phase4] soup: {soup2.geometry.num_tris} triangles, "
@@ -1580,7 +2042,7 @@ def main() -> int:
     mesh4 = attach_accelerator(make_mesh_cornell_box(4, device=dev))
     cfg_s = RenderConfig(spp=4, max_ray_depth=DEPTH, width=120, height=90,
                          integrator="bdpt", seed=0)
-    icl.clustered_hit.launches = 0
+    zero_counts()
     m_k = render(mesh4, cfg_s)
     check(icl.clustered_hit.launches > 0, "the L4 render launched K2 no time")
     m_p = render(mesh4, cfg_s, isect=PLAIN)
@@ -1601,9 +2063,10 @@ def main() -> int:
     cfg8 = RenderConfig(spp=8, max_ray_depth=DEPTH, width=W, height=H,
                         integrator="bdpt", seed=0, samples_per_chunk=8)
     torch.cuda.synchronize()
-    ib.brute_hit.launches = icl.clustered_hit.launches = 0
+    zero_counts()
     r8 = render(mesh, cfg8)
     k2_launches = icl.clustered_hit.launches
+    check(counts()[2] == 0, "the large-scene path launched the walk")
     st8 = r8.stats
     check(np.isfinite(r8.combined).all(), "non-finite pixels (L6 8 spp)")
     check(r8.combined.shape == (H, W, 3), "L6 8-spp shape")
@@ -1631,6 +2094,7 @@ def main() -> int:
     grad, grad_launches = phase10_grad(dev, gpu, mesh)
     mp, mp_launches = phase11_multiprocess(dev, gpu, mesh)
     del mesh
+    bvh12, walk_times, walk_launches, walk_err = phase12_bvh(dev, gpu)
 
     # Every kernel: ms is device_ms, the kernel's own time on the device
     # (utils/timing.py; device_source says whether from the profiler or a
@@ -1706,7 +2170,8 @@ def main() -> int:
                          for k in ("9a_bdpt", "9b_env", "9c_pt")},
         "grad_launches": grad_launches["k2"],
         "mp_launches": mp_launches["clustered_hit"],
-    }] + k3["kernels"]}
+    }] + k3["kernels"] + [walk_kernel_line(walk_times, walk_launches,
+                                           walk_err)]}
     detail = {"gpu": gpu, "k1_times": times, "k2_times": k2_times,
               "checks": {"cornell": rep_box, "soup8192": rep_soup,
                          f"meshbox_L{MESH_LEVEL}": rep_mesh,
@@ -1726,14 +2191,15 @@ def main() -> int:
                   "mrays_per_s": st8s["mrays_per_s"],
                   "wall_s": st8s["wall_time_s"], "vs_default_rel": rel_5s},
               "k3": k3["detail"], "env": env, "pt": pt, "cli": cli,
-              "grad": grad, "mp": mp}
+              "grad": grad, "mp": mp, "bvh": bvh12}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     os.makedirs(os.path.dirname(KERNEL_CHECK), exist_ok=True)
     with open(KERNEL_CHECK, "w") as f:
         json.dump({"ok": True, "gpu": gpu, "device": device,
                    "kernels": kernels["kernels"],
-                   "gates": {"phase10": grad, "phase11": mp}}, f, indent=1)
+                   "gates": {"phase10": grad, "phase11": mp,
+                             "phase12": bvh12}}, f, indent=1)
     print(f"[detail] {json.dumps(detail)}")
     print(json.dumps(kernels))
     print(gpu_line())

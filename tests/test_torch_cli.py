@@ -12,8 +12,10 @@ on tests/golden/torch_port/cbox_spheres.dae (the port's runs add
     bounds, probability_debug.png byte for byte;
   - --dump-camera then -c: the JAX package's camera file byte for byte, and
     the render from it bitwise the first;
-  - --visualize-bvh / --bvh-rays refused, the default --device cuda
-    refused without a card, and `python -m` as a user runs it.
+  - --visualize-bvh with --bvh-rays: the JAX package's <out>_bvh.png;
+    --bvh-leaf-size builds the tree; the visualizer's flags refused where
+    they cannot be honoured, the default --device cuda refused without a
+    card, and `python -m` as a user runs it.
 """
 
 import json
@@ -132,15 +134,65 @@ def test_cli_dump_camera_then_load(tmp_path):
         (tmp_path / "b.png").read_bytes()
 
 
-@pytest.mark.parametrize("flag", [["--visualize-bvh"], ["--bvh-rays", "4"]],
-                         ids=["visualize-bvh", "bvh-rays"])
-def test_cli_refuses_the_bvh_visualizer(tmp_path, capsys, flag):
+@pytest.mark.parametrize("flag,msg", [
+    (["--visualize-bvh", "lrx"], "invalid walk"),
+    (["--bvh-rays", "4"], "pass --visualize-bvh")],
+    ids=["visualize-bvh", "bvh-rays"])
+def test_cli_refuses_the_bvh_visualizer(tmp_path, capsys, flag, msg):
+    """The visualizer's flags are refused before anything is loaded when
+    they cannot be honoured: a walk with another step than l/r/u (as the
+    JAX CLI refuses it), and a ray overlay with no visualization to draw
+    it on (the JAX CLI ignores that one silently)."""
     with pytest.raises(SystemExit) as e:
         tcli.main(SMALL + flag + ["--device", "cpu", "-f",
                                   str(tmp_path / "o.png")])
     assert e.value.code == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    assert msg in capsys.readouterr().err
     assert not os.listdir(tmp_path)
+
+
+def test_cli_visualize_bvh_matches_jax(jax_cli, tmp_path):
+    """--visualize-bvh lr --bvh-rays 37 writes out_bvh.png beside the
+    render, the JAX CLI's image within one 8-bit level on >= 99.9 % of
+    pixels (tests/test_torch_bvh_vis.py)."""
+    argv = [SCENE, "-r", "48", "36", "-s", "1", "-m", "1", "--integrator",
+            "pt", "--visualize-bvh", "lr", "--bvh-rays", "37"]
+    jd, td = run_both(jax_cli, tmp_path, argv)
+    assert sorted(os.listdir(jd)) == sorted(os.listdir(td))
+    a, b = (read_png(str(d / "out_bvh.png")).astype(int) for d in (jd, td))
+    assert a.shape == b.shape == (36, 48, 4)
+    assert (np.abs(a - b) <= 1).all(-1).mean() >= 0.999
+
+
+def test_cli_bvh_leaf_size_builds_the_tree(tmp_path, monkeypatch):
+    """--bvh-leaf-size reaches the BVH that --accelerator bvh attaches,
+    and the visualizer walks that tree."""
+    from bidirectional_pathtracing_tpu_torch.scene import build as tbuild
+    from bidirectional_pathtracing_tpu_torch.utils import bvh_vis as tvis
+    seen = []
+    load, vis = tbuild.load_scene, tvis.BVHVisualizer
+
+    def recording_load(*args, **kw):
+        scene, aux = load(*args, **kw)
+        seen.append((kw, scene, aux))
+        return scene, aux
+
+    def recording_vis(scene):
+        seen.append(scene.bvh)
+        return vis(scene)
+
+    monkeypatch.setattr(tbuild, "load_scene", recording_load)
+    monkeypatch.setattr(tvis, "BVHVisualizer", recording_vis)
+    out = tmp_path / "o.png"
+    tcli.main(SMALL + ["-s", "1", "-m", "1", "--accelerator", "bvh",
+                       "--bvh-leaf-size", "8", "--visualize-bvh",
+                       "--device", "cpu", "-f", str(out)])
+    (kw, scene, aux), bvh = seen
+    assert kw["bvh_max_leaf_size"] == 8
+    assert bvh is scene.bvh
+    assert int(bvh.prim_count.max()) > 4
+    assert aux["builder"] in ("native", "numpy")
+    assert read_png(str(tmp_path / "o_bvh.png")).shape == (18, 24, 4)
 
 
 def test_cli_default_device_needs_a_card(tmp_path, capsys):

@@ -181,13 +181,13 @@ def test_attach_accelerator_rule():
     assert tbuild.attach_accelerator(small).clusters is None
     assert tbuild.attach_accelerator(small, "brute").clusters is None
     forced = tbuild.attach_accelerator(small, "bvh")
-    assert forced.clusters is not None and forced.bvh is None
+    assert forced.clusters is not None and forced.bvh is not None
     with pytest.raises(ValueError):
         tbuild.attach_accelerator(small, "kd")
     box = tproc.make_mesh_cornell_box(4, device="cpu")
     assert ti.kernel_route(box) == "brute"
     got = tbuild.attach_accelerator(box)
-    assert got.clusters is not None and got.bvh is None
+    assert got.clusters is not None and got.bvh is not None
     assert tbuild.attach_accelerator(got, "auto").clusters is got.clusters
     assert ti.kernel_route(got) == "clustered"
     assert ti.kernel_route(got, cuda=False) == "clustered"

@@ -803,3 +803,114 @@ def test_two_rank_gloo_render_on_one_card(cuda, tmp_path):
     save_image(one, render_frame_sharded(scene, cfg, dp=2, sp=1)[2])
     with open(png, "rb") as a, open(one, "rb") as b:
         assert a.read() == b.read()
+
+
+# --- the BVH walk kernel, the viewer and the visualizer ---------------------
+
+def _walk_rays(sc, n, seed):
+    """Random rays from inside the box (half of them from camera-ray hits)
+    and random windows, on the scene's device."""
+    from bidirectional_pathtracing_tpu_torch.tools.rays import (
+        ray_populations)
+    (_, o_c, d_c, _, _), (_, o_b, d_b, _, _), _ = ray_populations(sc, n, seed)
+    o = torch.cat([o_c[: n // 2], o_b[n // 2:]])
+    d = torch.cat([d_c[: n // 2], d_b[n // 2:]])
+    rng = np.random.default_rng(seed)
+    hi = torch.from_numpy(rng.uniform(0.05, 3.0, n).astype(np.float32)).to(
+        o.device)
+    return o.contiguous(), d.contiguous(), hi
+
+
+@pytest.mark.parametrize("scene,leaf", [("cornell", 4), ("meshbox_L4", 4),
+                                        ("meshbox_L4", 8)])
+def test_bvh_walk_matches_plain_bitwise(cuda, scene, leaf):
+    from bidirectional_pathtracing_tpu_torch.ops import intersect as ti
+    from bidirectional_pathtracing_tpu_torch.ops import intersect_bvh as ibv
+    from bidirectional_pathtracing_tpu_torch.scene.bvh import build_bvh
+    sc = (make_cornell_box(sphere_materials=("mirror", "glass"), device=cuda)
+          if scene == "cornell" else make_mesh_cornell_box(4, device=cuda))
+    g = sc.geometry
+    bvh = build_bvh(g, max_leaf_size=leaf)
+    o, d, hi = _walk_rays(sc, 20_001, 3)
+    for lo, mx in ((EPS_F, INF_D), (EPS_F, hi)):
+        before = ibv.bvh_walk.launches
+        got = ibv.bvh_walk(g, bvh, o, d, lo, mx)
+        occ = ibv.bvh_walk(g, bvh, o, d, lo, mx, any_hit=True)
+        assert ibv.bvh_walk.launches == before + 2
+        ref = ti.intersect_bvh(g, bvh, o, d, lo, mx)
+        ref_occ = ti.intersect_bvh(g, bvh, o, d, lo, mx, any_hit=True)
+        torch.cuda.synchronize()
+        assert int(ref.valid.sum()) > 1000
+        for f in ("t", "valid", "mat", "prim"):
+            assert torch.equal(getattr(got, f), getattr(ref, f)), f
+        torch.testing.assert_close(got.n, ref.n, rtol=0, atol=1e-6)
+        assert torch.equal(occ, ref_occ)
+        # against brute force (K1 reads the same triangles)
+        t_b, p_b = ib.brute_hit(g, o, d, lo, mx)
+        assert int((p_b != got.prim).sum()) <= 2
+
+
+def test_bvh_walk_wrapper_checks(cuda):
+    from bidirectional_pathtracing_tpu_torch.ops import intersect_bvh as ibv
+    from bidirectional_pathtracing_tpu_torch.scene.bvh import build_bvh
+    sc = make_cornell_box(device=cuda)
+    g = sc.geometry
+    bvh = build_bvh(g)
+    o, d, _ = _walk_rays(sc, 129, 4)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ibv.bvh_walk(g, bvh, o.requires_grad_(), d, EPS_F, INF_D)
+    with pytest.raises(TypeError):
+        ibv.bvh_walk(g, bvh, o.detach().double(), d.double(), EPS_F, INF_D)
+    with pytest.raises(ValueError, match="is on"):
+        ibv.bvh_walk(g, build_bvh(g, device="cpu"), o.detach(), d, EPS_F,
+                     INF_D)
+
+
+def test_bvh_route_render_matches_plain(cuda, monkeypatch):
+    """The clusterless route through the walk kernel (the brute-force cap
+    lowered to the Cornell box's size): 11 launches a d5 BDPT pass, and the
+    frame against the same render through the plain version."""
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.ops import intersect as ti
+    from bidirectional_pathtracing_tpu_torch.ops import intersect_bvh as ibv
+    from bidirectional_pathtracing_tpu_torch.scene.bvh import build_bvh
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+    monkeypatch.setattr(ti, "_BRUTE_MAX_TRIS", 8)
+    sc = make_cornell_box(sphere_materials=("mirror", "glass"), device=cuda)
+    sc = sc._replace(bvh=build_bvh(sc.geometry))
+    assert ti.kernel_route(sc) == "bvh"
+    cfg = RenderConfig(spp=2, max_ray_depth=5, width=48, height=36)
+    before = ibv.bvh_walk.launches
+    got = render(sc, cfg)
+    assert ibv.bvh_walk.launches - before == 2 * 11
+    ref = render(sc, cfg, isect=PLAIN)
+    rel = abs(got.combined.mean() - ref.combined.mean()) / ref.combined.mean()
+    assert rel <= 1e-3
+
+
+def test_viewer_tick_on_card(cuda, tmp_path):
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+    from bidirectional_pathtracing_tpu_torch.viewer import Viewer
+    cfg = RenderConfig(spp=2, max_ray_depth=3, width=48, height=36)
+    sc = make_cornell_box(sphere_materials=("mirror", "glass"), device=cuda)
+    v = Viewer(sc, cfg, output=str(tmp_path / "v.png"))
+    before = ib.brute_hit.launches
+    assert v.tick() and v.tick() and not v.tick()
+    assert ib.brute_hit.launches - before == 2 * (3 + 3 + 1)
+    ref = render(sc, cfg)
+    np.testing.assert_allclose(v.frame(), ref.combined, rtol=1e-5, atol=1e-6)
+    assert v.frame_png()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def test_visualizer_image_on_card(cuda):
+    from bidirectional_pathtracing_tpu_torch.utils import bvh_vis
+    vis_k = bvh_vis.BVHVisualizer(make_cornell_box(device=cuda))
+    vis_p = bvh_vis.BVHVisualizer(make_cornell_box(device="cpu"))
+    for v in (vis_k, vis_p):
+        v.navigate("lr")
+    before = ib.brute_hit.launches
+    a = vis_k.render(64, 48)
+    assert ib.brute_hit.launches == before + 1
+    b = vis_p.render(64, 48)
+    assert (np.abs(a - b) <= 1.0 / 255).all(-1).mean() >= 0.999

@@ -259,6 +259,7 @@ class _FakeScene:
     def __init__(self, n, clusters):
         self.geometry = _FakeGeom(n)
         self.clusters = clusters
+        self.bvh = None
 
 
 def test_dispatch_routes_and_raises():

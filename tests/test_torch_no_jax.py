@@ -54,3 +54,14 @@ def test_port_sources_name_no_jax_import():
                                 and PKG not in s):
                             offenders.append(f"{path}:{i}: {s}")
     assert not offenders, offenders
+
+
+def test_probe_covers_the_bvh_slice():
+    """The probe above imports every module of the port: among them the
+    viewer, the BVH visualizer, the scene dump, the walk kernel's wrapper
+    and the native builder's loader."""
+    names = {m.name for m in pkgutil.walk_packages(
+        [os.path.join(REPO, PKG)], PKG + ".")}
+    for mod in ("viewer", "utils.bvh_vis", "scene.dump", "scene.bvh",
+                "ops.intersect_bvh", "ops.native"):
+        assert f"{PKG}.{mod}" in names, mod

@@ -15,7 +15,8 @@ CPU:
     image, the env map's probability image and the camera settings file;
   - scene/procedural.py write_cornell_box_dae writes cbox_ico.dae at
     level 1, and two upsample rounds give the triangle count chip_smoke.py
-    phase 9a holds at level 4.
+    phase 9a holds at level 4 (and the BVH both packages attach there);
+  - scene/dump.py: the text dump of both fixtures byte for byte.
 
 The JAX package's downsample breaks cost ties by the builtin id() of an
 edge, a memory address, so on meshes with tied costs (the grid, the
@@ -37,6 +38,7 @@ from bidirectional_pathtracing_tpu.ops import envlight as jenv
 from bidirectional_pathtracing_tpu.scene import build as jbuild
 from bidirectional_pathtracing_tpu.scene import camera_file as jcam
 from bidirectional_pathtracing_tpu.scene import clusters as jclusters
+from bidirectional_pathtracing_tpu.scene import dump as jdump
 from bidirectional_pathtracing_tpu.scene import meshedit as jme
 from bidirectional_pathtracing_tpu.utils import exr as jexr
 from bidirectional_pathtracing_tpu.utils import image as jimage
@@ -44,6 +46,7 @@ from bidirectional_pathtracing_tpu.utils import png as jpng
 from bidirectional_pathtracing_tpu_torch.ops import envlight as tenv
 from bidirectional_pathtracing_tpu_torch.scene import build as tbuild
 from bidirectional_pathtracing_tpu_torch.scene import camera_file as tcam
+from bidirectional_pathtracing_tpu_torch.scene import dump as tdump
 from bidirectional_pathtracing_tpu_torch.scene import meshedit as tme
 from bidirectional_pathtracing_tpu_torch.scene import procedural as tproc
 from bidirectional_pathtracing_tpu_torch.scene.types import to_numpy
@@ -123,7 +126,7 @@ def test_load_scene_matches_jax_bitwise(name, ops, numbered_ids):
     assert ts.device == torch.device("cpu")
     assert_scenes_equal(js, ja, ts, ta)
     assert set(ta["seconds"]) == {"load_dae", "mesh_ops", "flatten",
-                                  "clusters", "upload"}
+                                  "bvh_build", "clusters", "upload"}
 
 
 def test_fixtures_load_as_described():
@@ -168,6 +171,22 @@ def test_cornell_box_dae_writer_counts(numbered_ids, numpy_builder,
     assert ja["num_tris"] == 6 * 2 * 16 + 2 * 20 * 4 ** 3 == 2752
     assert js.clusters is not None and ts.clusters is not None
     assert_scenes_equal(js, ja, ts, ta)
+    for f in ts.bvh._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(js.bvh, f)),
+                                      getattr(ts.bvh, f).numpy(), err_msg=f)
+
+
+@pytest.mark.parametrize("name", ["cbox_spheres", "cbox_ico"])
+def test_dump_scene_matches_jax(name, tmp_path):
+    from bidirectional_pathtracing_tpu.scene import collada as jcollada
+    from bidirectional_pathtracing_tpu_torch.scene import collada as tcollada
+    text = tdump.dump_scene_text(tcollada.load_dae(fixture(name)))
+    assert text == jdump.dump_scene_text(jcollada.load_dae(fixture(name)))
+    assert text.startswith("camera ") and "\nmaterial " in text
+    tdump.dump_scene(fixture(name), str(tmp_path / "port.txt"))
+    jdump.dump_scene(fixture(name), str(tmp_path / "jax.txt"))
+    assert (tmp_path / "port.txt").read_bytes() == \
+        (tmp_path / "jax.txt").read_bytes()
 
 
 def _port_mesh(jax_mesh):
