@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -28,7 +29,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
-BUILD_LOG: dict[str, dict] = {}   # name -> {"seconds", "cached", "log", "so"}
+# name -> {"seconds", "cached", "log", "so", "batch"}: every library this
+# process loaded (the nvcc kernels and compile_library's builds).  The
+# libraries of one load_all call build side by side and share its batch
+# number; a record's seconds run from its batch's start to its own end.
+BUILD_LOG: dict[str, dict] = {}
+_BATCHES = itertools.count()
 
 
 def _nvcc() -> str:
@@ -87,10 +93,26 @@ def finish(job: Job) -> str:
 
 
 def compile_library(compiler: str, flags, src: str, prefix: str) -> str:
-    """Build one library (start, then finish); its path."""
+    """Build one library (start, then finish), recorded in BUILD_LOG under
+    `prefix`; its path."""
+    t0 = time.perf_counter()
     job = start(compiler, flags, src, prefix)
-    finish(job)
+    log = finish(job)
+    BUILD_LOG[prefix] = {"seconds": time.perf_counter() - t0,
+                         "cached": job.proc is None, "log": log, "so": job.so,
+                         "batch": next(_BATCHES)}
     return job.so
+
+
+def build_seconds() -> float:
+    """Wall seconds this process has spent building libraries: the
+    longest build of each batch, summed over batches."""
+    longest: dict[int, float] = {}
+    for rec in BUILD_LOG.values():
+        if not rec["cached"]:
+            longest[rec["batch"]] = max(longest.get(rec["batch"], 0.0),
+                                        rec["seconds"])
+    return sum(longest.values())
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -102,6 +124,7 @@ def load_all(names) -> dict[str, ctypes.CDLL]:
     """Load csrc/<name>.cu for every name, starting one nvcc per source
     that needs a build, all at once, and waiting for all of them."""
     t0 = time.perf_counter()
+    batch = next(_BATCHES)
     jobs = {}
     for name in names:
         if name in _LOADED or name in jobs:
@@ -118,7 +141,7 @@ def load_all(names) -> dict[str, ctypes.CDLL]:
         _LOADED[name] = ctypes.CDLL(job.so)
         BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
                            "cached": job.proc is None, "log": log,
-                           "so": job.so}
+                           "so": job.so, "batch": batch}
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: _LOADED[name] for name in names}

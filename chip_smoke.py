@@ -166,6 +166,32 @@ a zero exit):
           at the same seed and spp (rtol 1e-5, atol 1e-6), 11 launches a
           tick; run_http on a free localhost port: /frame.png decodes to
           480x360, /key?k=v switches to VISUALIZE, /key?k=q ends it.
+ 13. the measurement entry points of tools/ (the ports of bench.py and of
+     the JAX tools/flagship_render.py, scaling_bench.py and
+     cluster_build_ab.py):
+       a. the bench in a fresh process, as a user runs it: its one stdout
+          line the headline with the JAX bench's keys, metric name and
+          vs_baseline; its four rows, each on the Cornell box (12
+          triangles, scene_file null: the card's machine holds no
+          reference checkout), through K1 with 2d + 1 launches a pass
+          over the warm-up chunk and over the timed chunks;
+       b. flagship rows at 8 spp (the tool's default is 128):
+          tests/golden/torch_port/cbox_spheres.dae through K1, and the
+          level-4 mesh box written as a file and loaded by the lucy
+          recipe (two upsamples of the meshes above 1,000 triangles:
+          163,852 triangles) through K2; each row's eye, light and
+          combined images bitwise equal to render() of its config, 11
+          launches a pass, its block error against the MIS-PT referee;
+       c. the scaling bench on cbox_spheres.dae: its --chip point, the
+          one-rank grid (a one-process gloo group) against the unsharded
+          step at 160x120 4 spp d4, their frames bitwise equal; and its
+          (2,1) run at the tool's default device, two gloo processes
+          rendering on cuda:0 at 160x60 a rank, 4 spp, d4, rank 0's frame
+          bitwise this process's render_frame_sharded on the card;
+       d. the cluster-cut A/B on that level-4 file upsampled 0 and 1 times
+          (10,252 and 40,972 triangles), midpoint and SAH, each cell in a
+          fresh process at 480x360 d5 8 spp in one chunk through K2 (88
+          launches); the two cuts' frames within phase 3a's gates.
 
 Kernel times (utils/timing.py): device_ms is the kernel's own duration
 on the device, from torch.profiler's kernel records (or CUDA events
@@ -195,20 +221,22 @@ counts the same up to each ray's hit.  library_ms is null: no single
 PyTorch call computes a closest hit.  The K1 and K2 lines also carry
 pt_launches, the launches of phase 8d's PT run of their cell,
 cli_launches, those of phase 9's runs, grad_launches, those of phase 10's
-gradient runs (a backward launches no kernel), and mp_launches, each
-rank's in phase 11.  The walk kernel's line (bvh_walk, phase 12) counts
-its work from the plain version's walk of the same rays: a slab test per
-node visited, a Möller–Trumbore per triangle tested and a sphere test per
-sphere tested; its bytes are the rays, its outputs (t, valid, n, mat,
-prim: 25 B a ray, or the any hit's 1 B) and the tree's and the geometry's
-tables, each read once.  It replaces no Pallas kernel: "replaces" names
-the JAX walk's lax.while_loop.  Its launches are those of phase 12d's
-render.
+gradient runs (a backward launches no kernel), mp_launches, each
+rank's in phase 11, and bench_launches, flagship_launches and
+ab_launches, those of phase 13's bench rows (timed chunks), flagship
+renders and A/B cells (timed chunk).  The walk kernel's line (bvh_walk,
+phase 12) counts its work from the plain version's walk of the same rays:
+a slab test per node visited, a Möller–Trumbore per triangle tested and a
+sphere test per sphere tested; its bytes are the rays, its outputs (t,
+valid, n, mat, prim: 25 B a ray, or the any hit's 1 B) and the tree's and
+the geometry's tables, each read once.  It replaces no Pallas kernel:
+"replaces" names the JAX walk's lax.while_loop.  Its launches are those of
+phase 12d's render.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and before that one JSON line
 lists the kernels with their launches, errors and times.  The same kernels
-and the gates of phases 10-11 go to artifacts/GPU_KERNEL_CHECK.json.
+and the gates of phases 10-13 go to artifacts/GPU_KERNEL_CHECK.json.
 """
 
 from __future__ import annotations
@@ -1871,6 +1899,203 @@ def walk_kernel_line(times, launches, max_abs_err):
     }
 
 
+# --- phase 13: the measurement entry points ---------------------------------
+
+BENCH_ROWS = {"CBspheres": (5, 32, 8), "CBbunny": (5, 8, 8),
+              "CBgems": (8, 8, 8), "CBlucy_standin": (5, 8, 8)}
+FLAGSHIP_SPP = 8                               # 13b's rows (the tool: 128)
+AB_UPS = {0: 10_252, 1: 40_972}                # 13d's cells: triangles
+LUCY_TRIS = 12 + 2 * 20 * 4 ** (DAE_LEVEL + 2)  # walls kept: 163,852
+
+
+def phase13_tools(dev, gpu):
+    """Phase 13 (see the module docstring).  Returns (detail, {kernel:
+    {"bench": ..., "flagship": ..., "ab": ...} launches})."""
+    import shutil
+    import tempfile
+
+    import torch
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.parallel.render import (
+        render_frame_sharded)
+    from bidirectional_pathtracing_tpu_torch.scene.build import load_scene
+    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+        write_cornell_box_dae)
+    from bidirectional_pathtracing_tpu_torch.tools import bench
+    from bidirectional_pathtracing_tpu_torch.tools import (
+        cluster_build_ab as ab)
+    from bidirectional_pathtracing_tpu_torch.tools import (
+        flagship_render as flagship)
+    from bidirectional_pathtracing_tpu_torch.tools import (
+        scaling_bench as scaling)
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+
+    detail, times = {}, {}
+    launches = {"brute_hit": {}, "clustered_hit": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        # 13a: the bench in a fresh process, as a user runs it
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "bench.json")
+        p = subprocess.run(
+            [sys.executable, "-m", "bidirectional_pathtracing_tpu_torch."
+             "tools.bench", "--out", out], cwd=REPO, capture_output=True,
+            text=True, timeout=900, env=dict(os.environ, PYTHONPATH=REPO))
+        check(p.returncode == 0, f"phase13a: the bench exited "
+              f"{p.returncode}:\n{p.stderr[-4000:]}")
+        lines = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
+        check(len(lines) == 1, f"phase13a: stdout {p.stdout[-2000:]!r}")
+        head = json.loads(lines[0])
+        with open(out) as f:
+            rows = {r["scene"]: r for r in json.load(f)}
+        check(sorted(rows) == sorted(BENCH_ROWS),
+              f"phase13a: rows {sorted(rows)}")
+        check(head == bench.headline(rows["CBspheres"])
+              and head["metric"] ==
+              "bdpt_camera_samples_per_s_480x360_d5_CBspheres"
+              and head["vs_baseline"] == round(
+                  head["value"] / (480 * 360 * 32 / 308.0), 2),
+              f"phase13a: headline {head}")
+        for name, (depth, spp, chunk) in BENCH_ROWS.items():
+            r = rows[name]
+            per = 2 * depth + 1
+            want = {"brute_hit": per * spp, "clustered_hit": 0,
+                    "bvh_walk": 0}
+            check(r["tris"] == 12 and r["scene_file"] is None
+                  and r["kernel_route"] == "brute" and r["spp"] == spp
+                  and r["depth"] == depth and r["gpu"] == gpu,
+                  f"phase13a {name}: {r}")
+            check(r["launches"] == want and r["warmup_launches"] == {
+                **want, "brute_hit": per * chunk},
+                f"phase13a {name}: launches {r['launches']}, warm-up "
+                f"{r['warmup_launches']}")
+            check(r["rays"] > 0 and r["samples_per_s"] > 0,
+                  f"phase13a {name}: {r}")
+            for k in launches:
+                launches[k].setdefault("bench", {})[name] = r["launches"][k]
+        times["13a"] = time.perf_counter() - t0
+        detail["13a_bench"] = {"headline": head, "rows": rows}
+        print(f"[phase13a] {json.dumps(head)}; rows "
+              + json.dumps({k: {f: v[f] for f in (
+                  "samples_per_s", "mrays_per_s", "wall_s", "compile_s",
+                  "build_s")} for k, v in rows.items()})
+              + f" ({gpu})")
+
+        # 13b: flagship rows at FLAGSHIP_SPP, each frame bitwise render()'s
+        t0 = time.perf_counter()
+        scene_dir = os.path.join(tmp, "scenes")
+        os.makedirs(scene_dir)
+        shutil.copy(DAE_FIXTURE, os.path.join(scene_dir, "CBspheres.dae"))
+        write_cornell_box_dae(os.path.join(scene_dir, "CBbunny.dae"),
+                              DAE_LEVEL)
+        detail["13b_flagship"] = {}
+        for name, kernel, route, tris in (
+                ("spheres", "brute_hit", "brute", None),
+                ("lucy", "clustered_hit", "clustered", LUCY_TRIS)):
+            row, scene, cfg, res = flagship.render_row(
+                name, W, H, FLAGSHIP_SPP, scene_dir=scene_dir,
+                golden_dir=scene_dir, png_dir=os.path.join(tmp, "png"),
+                device=dev)
+            want = {"brute_hit": 0, "clustered_hit": 0, "bvh_walk": 0,
+                    kernel: BDPT_PER_PASS["area"] * FLAGSHIP_SPP}
+            check(row["kernel_route"] == route and row["launches"] == want,
+                  f"phase13b {name}: route {row['kernel_route']}, "
+                  f"launches {row['launches']}")
+            check(tris is None or row["tris"] == tris,
+                  f"phase13b {name}: {row['tris']} triangles")
+            check(row["referee"] == f"pt_mis_{FLAGSHIP_SPP}",
+                  f"phase13b {name}: referee {row['referee']}")
+            ref = render(scene, cfg)
+            for k in ("eye", "light", "combined"):
+                check(np.array_equal(getattr(res, k), getattr(ref, k)),
+                      f"phase13b {name}: the row's {k} image differs from "
+                      "render()'s")
+            # not black (the loader's FOV widens with the resolution, a
+            # replicated reference quirk, so at 480x360 cbox_spheres.dae's
+            # box fills a small part of the frame: mean about 0.0016)
+            check(np.isfinite(res.combined).all()
+                  and res.combined.mean() > 1e-4,
+                  f"phase13b {name}: frame mean {res.combined.mean()}")
+            del scene, res, ref
+            row["bitwise_equal_render"] = True
+            for k in launches:
+                launches[k]["flagship"] = (launches[k].get("flagship", 0)
+                                           + row["launches"][k])
+            detail["13b_flagship"][name] = row
+            print(f"[phase13b] {name}: {json.dumps(row)} ({gpu})")
+        times["13b"] = time.perf_counter() - t0
+
+        # 13c: the scaling bench's one-rank point on the card
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        zero_counts()
+        chip = scaling.chip_sanity(160, 120, 4, scene=DAE_FIXTURE,
+                                   device=dev)
+        k1, k2n, walk = counts()
+        check(chip["frames_bitwise_equal"],
+              "phase13c: the one-rank frame differs from the unsharded "
+              "step's")
+        check(k1 > 0 and k2n == 0 and walk == 0,
+              f"phase13c: K1, K2, walk launches {(k1, k2n, walk)}")
+        chip["k1_launches"] = k1
+        detail["13c_scaling_chip"] = chip
+        print(f"[phase13c] {json.dumps(chip)}")
+        # the (2,1) run as the tool runs it: both ranks on the card
+        frame = os.path.join(tmp, "scaling_dp2.npz")
+        run = scaling.run_worker(2, 160, 120, 4, 1, scene=DAE_FIXTURE,
+                                 depth=4, frame=frame)
+        check(run is not None and run["rank_devices"] == [str(dev)] * 2,
+              f"phase13c: the (2,1) run on the card: {run}")
+        scene, _ = load_scene(DAE_FIXTURE, 160, 120, device=dev)
+        ref = render_frame_sharded(
+            scene, RenderConfig(spp=4, max_ray_depth=4, width=160,
+                                height=120, integrator="bdpt"),
+            dp=2, sp=1, seed=scaling.ITERS - 1)
+        got = np.load(frame)
+        check(all(np.array_equal(got[k], x) for k, x in
+                  zip(("eye", "light", "combined"), ref)),
+              "phase13c: the (2,1) run's frame differs from "
+              "render_frame_sharded's")
+        run["bitwise_equal_sharded"] = True
+        detail["13c_scaling_dp2"] = run
+        times["13c"] = time.perf_counter() - t0
+        print(f"[phase13c] dp2 on the card: {json.dumps(run)} ({gpu})")
+
+        # 13d: the cluster cut A/B, each cell in a fresh process
+        t0 = time.perf_counter()
+        dae = os.path.join(scene_dir, "CBbunny.dae")
+        names = {v: k for k, v in ab.UPS.items()}
+        detail["13d_cluster_ab"] = {}
+        for ups, tris in AB_UPS.items():
+            frames = {}
+            for build in ab.BUILDS:
+                frame = os.path.join(tmp, f"ab_{ups}_{build}.npy")
+                r = ab.run_cell(names[ups], build, dae=dae, device="cuda",
+                                frame=frame)
+                check(r is not None, f"phase13d k={ups} {build}: failed")
+                check(r["tris"] == tris and r["kernel_route"] == "clustered"
+                      and r["launches"] == {
+                          "brute_hit": 0, "clustered_hit":
+                          BDPT_PER_PASS["area"] * 8, "bvh_walk": 0}
+                      and r["gpu"] == gpu,
+                      f"phase13d k={ups} {build}: {r}")
+                frames[build] = np.load(frame)
+                cell = f"{names[ups]}/{build}"
+                for k in launches:
+                    launches[k].setdefault("ab", {})[cell] = r["launches"][k]
+                detail["13d_cluster_ab"][cell] = r
+            rel, blk = render_vs(f"phase13d k={ups} midpoint vs sah",
+                                 frames["sah"], frames["midpoint"], 1e-3,
+                                 0.01)
+            detail["13d_cluster_ab"][f"{names[ups]}_frames"] = {
+                "rel": rel, "block": blk,
+                "bitwise_equal": bool(np.array_equal(frames["sah"],
+                                                     frames["midpoint"]))}
+        times["13d"] = time.perf_counter() - t0
+    detail["seconds"] = times
+    print(f"[phase13] seconds {json.dumps(times)}")
+    return detail, launches
+
+
 def main() -> int:
     import torch
 
@@ -2095,6 +2320,7 @@ def main() -> int:
     mp, mp_launches = phase11_multiprocess(dev, gpu, mesh)
     del mesh
     bvh12, walk_times, walk_launches, walk_err = phase12_bvh(dev, gpu)
+    tools13, tool_launches = phase13_tools(dev, gpu)
 
     # Every kernel: ms is device_ms, the kernel's own time on the device
     # (utils/timing.py; device_source says whether from the profiler or a
@@ -2133,6 +2359,9 @@ def main() -> int:
         "cli_launches": {"9d_golden": cli_launches["9d_golden"][0]},
         "grad_launches": grad_launches["k1"],
         "mp_launches": mp_launches["brute_hit"],
+        "bench_launches": tool_launches["brute_hit"]["bench"],
+        "flagship_launches": tool_launches["brute_hit"]["flagship"],
+        "ab_launches": tool_launches["brute_hit"]["ab"],
         "walk_172800_ms": k1w["device_ms"],
         "walk_172800_device_ms": k1w["device_ms"],
         "walk_172800_call_ms": k1w["call_ms"],
@@ -2170,6 +2399,9 @@ def main() -> int:
                          for k in ("9a_bdpt", "9b_env", "9c_pt")},
         "grad_launches": grad_launches["k2"],
         "mp_launches": mp_launches["clustered_hit"],
+        "bench_launches": tool_launches["clustered_hit"]["bench"],
+        "flagship_launches": tool_launches["clustered_hit"]["flagship"],
+        "ab_launches": tool_launches["clustered_hit"]["ab"],
     }] + k3["kernels"] + [walk_kernel_line(walk_times, walk_launches,
                                            walk_err)]}
     detail = {"gpu": gpu, "k1_times": times, "k2_times": k2_times,
@@ -2191,7 +2423,7 @@ def main() -> int:
                   "mrays_per_s": st8s["mrays_per_s"],
                   "wall_s": st8s["wall_time_s"], "vs_default_rel": rel_5s},
               "k3": k3["detail"], "env": env, "pt": pt, "cli": cli,
-              "grad": grad, "mp": mp, "bvh": bvh12}
+              "grad": grad, "mp": mp, "bvh": bvh12, "tools": tools13}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     os.makedirs(os.path.dirname(KERNEL_CHECK), exist_ok=True)
@@ -2199,7 +2431,8 @@ def main() -> int:
         json.dump({"ok": True, "gpu": gpu, "device": device,
                    "kernels": kernels["kernels"],
                    "gates": {"phase10": grad, "phase11": mp,
-                             "phase12": bvh12}}, f, indent=1)
+                             "phase12": bvh12, "phase13": tools13}},
+                  f, indent=1)
     print(f"[detail] {json.dumps(detail)}")
     print(json.dumps(kernels))
     print(gpu_line())

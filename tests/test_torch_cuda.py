@@ -10,7 +10,8 @@ resume, cell mode, adaptive sampling and autofocus on the card; the CLI
 on a .dae file through K1; gradients through K1 against the plain
 version, the wrappers' refusal of rays that require grad, the
 inverse-rendering example at its defaults, and a two-process render
-(parallel/launch.py) on one card.
+(parallel/launch.py) on one card; the BVH walk kernel, the viewer and the
+visualizer; and the measurement tools' bench and flagship rows.
 
 Jax-free, so it runs where the card is (that machine has no jax; the
 repo's conftest imports it, so pass --noconftest):
@@ -914,3 +915,74 @@ def test_visualizer_image_on_card(cuda):
     assert ib.brute_hit.launches == before + 1
     b = vis_p.render(64, 48)
     assert (np.abs(a - b) <= 1.0 / 255).all(-1).mean() >= 0.999
+
+
+# --- the measurement entry points (tools/) ----------------------------------
+
+def test_bench_row_on_card(cuda):
+    """tools/bench.py's CBspheres row at 48x36 (d5, 32 spp in chunks of 8;
+    the Cornell box where the reference checkout is absent): through K1,
+    2d + 1 launches a pass over the warm-up chunk and over the timed
+    chunks."""
+    from bidirectional_pathtracing_tpu_torch.tools import bench
+    name, path, depth, spp, chunk = bench.RUNS[0]
+    row = bench.bench_scene(name, path, depth, spp, chunk, width=48,
+                            height=36, device=cuda)
+    per = 2 * depth + 1
+    assert row["kernel_route"] == "brute" and row["device"] == "cuda:0"
+    assert row["launches"] == {"brute_hit": per * spp, "clustered_hit": 0,
+                               "bvh_walk": 0}
+    assert row["warmup_launches"]["brute_hit"] == per * chunk
+    assert row["spp"] == spp and row["rays"] > 0 and row["gpu"]
+    assert bench.headline(row)["metric"] == \
+        "bdpt_camera_samples_per_s_480x360_d5_CBspheres"
+
+
+def test_scaling_run_on_card_is_render_frame_sharded(cuda, tmp_path):
+    """tools/scaling_bench.py's (2,1) run at its default device: two gloo
+    ranks rendering on cuda:0, 48x12 a rank, 2 spp, d3 on
+    cbox_spheres.dae; rank 0's frame bitwise render_frame_sharded's on
+    the card."""
+    import os
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.parallel.render import (
+        render_frame_sharded)
+    from bidirectional_pathtracing_tpu_torch.scene.build import load_scene
+    from bidirectional_pathtracing_tpu_torch.tools import scaling_bench
+    dae = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "golden", "torch_port", "cbox_spheres.dae")
+    frame = str(tmp_path / "frame.npz")
+    r = scaling_bench.run_worker(2, 48, 24, 2, 1, scene=dae, depth=3,
+                                 frame=frame)
+    assert r is not None and r["rank_devices"] == ["cuda:0", "cuda:0"]
+    scene, _ = load_scene(dae, 48, 24, device=cuda)
+    cfg = RenderConfig(spp=2, max_ray_depth=3, width=48, height=24,
+                       integrator="bdpt")
+    ref = render_frame_sharded(scene, cfg, dp=2, sp=1,
+                               seed=scaling_bench.ITERS - 1)
+    got = np.load(frame)
+    for k, x in zip(("eye", "light", "combined"), ref):
+        np.testing.assert_array_equal(got[k], x, err_msg=k)
+    assert ref[2].mean() > 0
+
+
+def test_flagship_row_through_clustered_kernel_on_card(cuda, tmp_path):
+    """tools/flagship_render.py's lucy row on the level-4 mesh box written
+    as CBbunny.dae (163,852 triangles after its two upsamples), 48x36,
+    2 spp: through K2, its frame bitwise render()'s."""
+    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+        write_cornell_box_dae)
+    from bidirectional_pathtracing_tpu_torch.tools import flagship_render
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+    write_cornell_box_dae(str(tmp_path / "CBbunny.dae"), 4)
+    row, scene, cfg, res = flagship_render.render_row(
+        "lucy", 48, 36, 2, scene_dir=str(tmp_path),
+        golden_dir=str(tmp_path), png_dir=str(tmp_path / "png"),
+        device=cuda)
+    assert row["tris"] == 163_852 and row["kernel_route"] == "clustered"
+    assert row["launches"] == {"brute_hit": 0, "clustered_hit": 2 * 11,
+                               "bvh_walk": 0}
+    assert row["referee"] == "pt_mis_2"
+    ref = render(scene, cfg)
+    for k in ("eye", "light", "combined"):
+        np.testing.assert_array_equal(getattr(res, k), getattr(ref, k))

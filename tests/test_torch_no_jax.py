@@ -65,3 +65,14 @@ def test_probe_covers_the_bvh_slice():
     for mod in ("viewer", "utils.bvh_vis", "scene.dump", "scene.bvh",
                 "ops.intersect_bvh", "ops.native"):
         assert f"{PKG}.{mod}" in names, mod
+
+
+def test_probe_covers_the_measurement_tools():
+    """The probe above imports the measurement entry points too: the
+    ports of bench.py and of the JAX tools/flagship_render.py,
+    scaling_bench.py and cluster_build_ab.py."""
+    names = {m.name for m in pkgutil.walk_packages(
+        [os.path.join(REPO, PKG)], PKG + ".")}
+    for mod in ("bench", "flagship_render", "scaling_bench",
+                "cluster_build_ab"):
+        assert f"{PKG}.tools.{mod}" in names, mod
