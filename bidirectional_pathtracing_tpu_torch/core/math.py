@@ -22,6 +22,22 @@ INF_D = 1e30          # miss sentinel (finite, like the JAX package)
 # Rec.709 luma weights used by Vector3D::illum() in the reference.
 _LUMA = (0.2126, 0.7152, 0.0722)
 
+# const()'s tensors, by (values, dtype, device)
+_CONSTS: dict = {}
+
+
+def const(values: tuple, dtype, device) -> torch.Tensor:
+    """The tensor of the nested tuple `values` on `device`, made on first
+    use and kept.  Making it uploads from the host and waits for the
+    device, which a CUDA graph cannot capture (utils/step_graph.py): a
+    pass's warm-up makes its constants, its capture reads them.  Never
+    modify the returned tensor in place."""
+    key = (values, dtype, str(torch.device(device)))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
+
 
 def dot(a, b):
     return torch.sum(a * b, dim=-1)
@@ -49,7 +65,7 @@ def cross(a, b):
 
 def luminance(c):
     """Vector3D::illum(): 0.2126 r + 0.7152 g + 0.0722 b."""
-    w = torch.tensor(_LUMA, dtype=c.dtype, device=c.device)
+    w = const(_LUMA, c.dtype, c.device)
     return torch.sum(c * w, dim=-1)
 
 

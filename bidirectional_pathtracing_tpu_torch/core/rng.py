@@ -8,7 +8,8 @@ sample streams are bitwise equal to the JAX package's.
 
   - The pass key is two uint32 words, `fold_in(key(seed), pass)`: the
     threefry2x32 fold_in of jax.random (utils/render.py:158 of the JAX
-    package), computed here on the host in numpy.
+    package), computed here on the host in numpy; `pass_keys` uploads a
+    chunk's keys at once, and lane_keys reads one from the device.
   - Lane keys are [S, 2] states mixed with the pcg2d hash (Jarzynski &
     Olano, JCGT 2020).  torch has no full uint32 arithmetic and its `>>`
     on signed ints is arithmetic, so the words live in int64 tensors and
@@ -83,11 +84,29 @@ def _pcg2d(a, b):
     return v0, v1
 
 
-def lane_keys(key_data: np.ndarray, lane_ids: torch.Tensor) -> torch.Tensor:
-    """One key per lane: [S, 2] int64 words from the pass key data [2] and
-    the (non-negative) lane ids [S]."""
+def pass_keys(key_data: np.ndarray, passes, device) -> torch.Tensor:
+    """The keys fold_in(key_data, i) of the pass indices `passes` as one
+    [n, 2] int64 tensor on `device`: one upload for a chunk of passes."""
+    host = np.array([fold_in(key_data, i) for i in passes],
+                    np.int64).reshape(-1, 2)
+    return torch.from_numpy(host).to(device)
+
+
+def lane_keys(key_data, lane_ids: torch.Tensor) -> torch.Tensor:
+    """One key per lane: [S, 2] int64 words from the pass key and the
+    (non-negative) lane ids [S].  The pass key is a [2] int64 tensor on the
+    lanes' device, read there when the lanes are made (so a CUDA graph of
+    a pass reads the key of the pass it replays), or two uint32 words on
+    the host (numpy); the bits are the same."""
     ids = lane_ids.to(torch.int64) & _M32
-    v0, v1 = _pcg2d(ids ^ int(key_data[0]), (ids + int(key_data[1])) & _M32)
+    if isinstance(key_data, torch.Tensor):
+        if key_data.dtype != torch.int64 or key_data.shape != (2,):
+            raise TypeError("a pass key tensor is [2] int64, got "
+                            f"{tuple(key_data.shape)} {key_data.dtype}")
+        k0, k1 = key_data[0], key_data[1]
+    else:
+        k0, k1 = int(key_data[0]), int(key_data[1])
+    v0, v1 = _pcg2d(ids ^ k0, (ids + k1) & _M32)
     return torch.stack([v0, v1], dim=-1)
 
 

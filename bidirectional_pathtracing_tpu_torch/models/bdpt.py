@@ -49,7 +49,7 @@ from bidirectional_pathtracing_tpu_torch.ops import camera_ops
 from bidirectional_pathtracing_tpu_torch.ops import envlight
 from bidirectional_pathtracing_tpu_torch.ops import lights as light_ops
 from bidirectional_pathtracing_tpu_torch.ops.intersect import (
-    DISPATCH, Intersector, scene_occluded_segment)
+    DISPATCH, Intersector, _window, scene_occluded_segment)
 from bidirectional_pathtracing_tpu_torch.scene.types import Scene
 
 
@@ -94,8 +94,8 @@ def _prepare_subpath(scene: Scene, o, d, point_pdf, dir_pdf, init_radiance,
     alpha_prev = v1_alpha
     p_prev = point_pdf
     alive = torch.ones((s,), dtype=torch.bool, device=dev)
-    min_t = torch.as_tensor(first_min_t, dtype=o.dtype, device=dev).expand(s)
-    max_t = torch.as_tensor(first_max_t, dtype=o.dtype, device=dev).expand(s)
+    min_t = _window(first_min_t, s, o)
+    max_t = _window(first_max_t, s, o)
 
     outs = []
     for i in range(nv - 1):
@@ -758,7 +758,9 @@ def sample_pass(scene: Scene, key, width: int, height: int, pixel_ids,
                 inv_ns_aa=None, isect: Intersector = DISPATCH):
     """One camera-sample-per-pixel BDPT pass.
 
-    key: the pass key data, two uint32 words (core/rng.py fold_in).
+    key: the pass key, two uint32 words (core/rng.py fold_in) or the same
+    as a [2] int64 tensor on the device (core/rng.py lane_keys), which a
+    CUDA graph of the pass reads at each replay (utils/step_graph.py).
     Returns (eye_L [S,3], light_img [H*W,3]); light_img carries the
     1/ns_aa factor like the reference's splats (bidirection.cpp:460-461).
     With return_stats, also a dict with "rays": the MEASURED count of

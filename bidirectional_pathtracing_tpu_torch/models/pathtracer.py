@@ -212,7 +212,7 @@ def trace_radiance(scene: Scene, o, d, keys, cfg: RenderConfig,
 
     hit = isect.closest(scene, o, d, scene.camera.nclip.expand(s),
                         scene.camera.fclip.expand(s))
-    rays = torch.tensor(s, dtype=torch.int64, device=dev)
+    rays = torch.full((), s, dtype=torch.int64, device=dev)
     L = torch.zeros_like(o)
     if env is not None:
         L = L + torch.where(hit.valid[..., None], 0.0,

@@ -33,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from bidirectional_pathtracing_tpu_torch.core.math import (
-    PI, reflect_local, refract_local)
+    PI, const, reflect_local, refract_local)
 from bidirectional_pathtracing_tpu_torch.core import samplers
 from bidirectional_pathtracing_tpu_torch.scene.types import (
     Materials,
@@ -203,7 +203,7 @@ def sample(materials: Materials, mid, wo, u, adjoint: bool = False) -> BSDFSampl
     wi_mf = _unit(wi_mf)
     mf_ok = (wo[..., 2] > 1e-5) & (wi_mf[..., 2] > 1e-5)
     pdf_mf = _microfacet_pdf(alpha, wo, wi_mf)
-    z_axis = torch.tensor([0.0, 0.0, 1.0], dtype=wo.dtype, device=wo.device)
+    z_axis = const((0.0, 0.0, 1.0), wo.dtype, wo.device)
     wi_mf = torch.where(mf_ok[..., None], wi_mf, z_axis)
     pdf_mf = torch.where(mf_ok, torch.clamp_min(pdf_mf, 1e-12), 1.0)
     f_mf_val = (_microfacet_f(m, wi_mf, wo) if adjoint

@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from bidirectional_pathtracing_tpu_torch.core.math import normalize
+from bidirectional_pathtracing_tpu_torch.core.math import const, normalize
 from bidirectional_pathtracing_tpu_torch.scene.types import Camera
 
 
@@ -84,7 +84,7 @@ def sample_ray_pdf(cam: Camera, p, width: int, height: int) -> CameraImportance:
     # wc = w2c * (-wi) with z flipped (camera looks down -z)
     w2c = cam.c2w.T
     wc = torch.sum(w2c * (-wi)[..., None, :], dim=-1)
-    wc = wc * torch.tensor([1.0, 1.0, -1.0], dtype=wc.dtype, device=wc.device)
+    wc = wc * const((1.0, 1.0, -1.0), wc.dtype, wc.device)
     cos_t = wc[..., 2]                      # cos(theta) toward the view axis
     th = _tan_half(cam.hfov)
     tv = _tan_half(cam.vfov)

@@ -81,9 +81,14 @@ def _unit(v):
 
 
 def _window(x, r_count: int, like):
-    """Broadcast a scalar or [R] window bound to a [R] tensor."""
-    return torch.as_tensor(x, dtype=like.dtype, device=like.device).expand(
-        r_count)
+    """Broadcast a scalar or [R] window bound to a [R] tensor.  A Python
+    number is filled in on the device, not uploaded: an upload waits for
+    the device, which a CUDA graph cannot capture."""
+    if isinstance(x, torch.Tensor):
+        t = x.to(dtype=like.dtype, device=like.device)
+    else:
+        t = torch.full((), x, dtype=like.dtype, device=like.device)
+    return t.expand(r_count)
 
 
 def refuse_grad(kernel: str, **tensors):

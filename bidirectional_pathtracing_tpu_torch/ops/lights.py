@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from bidirectional_pathtracing_tpu_torch.core.math import (
-    EPS_F, INF_D, PI, make_coord_space, normalize, to_local, to_world,
+    EPS_F, INF_D, PI, const, make_coord_space, normalize, to_local, to_world,
 )
 from bidirectional_pathtracing_tpu_torch.core import samplers
 from bidirectional_pathtracing_tpu_torch.scene.types import (
@@ -93,14 +93,13 @@ def sample_L(lights: Lights, idx, p, u2, reference_quirks: bool = True) -> NEESa
 
     # HEMISPHERE (light.cpp:62-70)
     dir_h = samplers.uniform_hemisphere(u2)
-    hemi = torch.tensor(_HEMI_TO_WORLD, dtype=p.dtype, device=p.device)
+    hemi = const(_HEMI_TO_WORLD, p.dtype, p.device)
     wi_h = torch.sum(hemi * dir_h[..., None, :], dim=-1)
 
     kind = li.kind
     # Default wi is a unit axis so unsupported kinds (SPOT is an empty stub
     # in the reference, light.cpp:156-194) still give a non-degenerate ray.
-    z_axis = torch.zeros_like(p)
-    z_axis[..., 2] = 1.0
+    z_axis = const((0.0, 0.0, 1.0), p.dtype, p.device).expand(p.shape)
     wi = torch.where((kind == LIGHT_AREA)[..., None], wi_a, z_axis)
     wi = torch.where((kind == LIGHT_POINT)[..., None], wi_p, wi)
     wi = torch.where((kind == LIGHT_DIRECTIONAL)[..., None], wi_d, wi)

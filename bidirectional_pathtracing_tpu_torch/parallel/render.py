@@ -29,12 +29,15 @@ the transport.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from bidirectional_pathtracing_tpu_torch.config import RenderConfig
 from bidirectional_pathtracing_tpu_torch.core import rng
 from bidirectional_pathtracing_tpu_torch.scene.types import Scene
+from bidirectional_pathtracing_tpu_torch.utils import step_graph
 
 
 def slab_ids(cfg: RenderConfig, dp: int, dp_idx: int, device) -> torch.Tensor:
@@ -46,24 +49,14 @@ def slab_ids(cfg: RenderConfig, dp: int, dp_idx: int, device) -> torch.Tensor:
                         device=device)
 
 
-def _pass(scene: Scene, key, pix, cfg: RenderConfig):
-    """One pass over the pixel ids pix: (eye [S,3], light [H*W,3])."""
-    w, h = cfg.width, cfg.height
-    if cfg.integrator == "bdpt":
-        from bidirectional_pathtracing_tpu_torch.models import bdpt
-        return bdpt.sample_pass(scene, key, w, h, pix, cfg)
-    from bidirectional_pathtracing_tpu_torch.models import pathtracer as pt
-    keys = rng.lane_keys(key, pix)
-    o, d = pt.sample_camera_rays(scene, keys, w, h, pix, cfg)
-    L = pt.trace_radiance(scene, o, d, keys, cfg)
-    return L, torch.zeros((h * w, 3), device=pix.device)
-
-
 def render_rank(scene: Scene, cfg: RenderConfig, dp: int, sp: int,
                 rank: int, seed=None):
     """Rank `rank`'s share of the frame on the scene's device: (its eye
     slab summed over its passes [S,3], its light image summed over them
-    [H*W,3]), neither divided by anything."""
+    [H*W,3]), neither divided by anything.  The passes run as render()'s
+    chunks do (utils/step_graph.py run_chunk: replays of the captured pass
+    on the card), with the eye radiance added unscaled (eye_scale 1) and
+    the slab's ids in place of a cell."""
     if dp < 1 or sp < 1:
         raise ValueError(f"dp={dp} and sp={sp} must be at least 1")
     if cfg.spp % sp != 0:
@@ -72,14 +65,16 @@ def render_rank(scene: Scene, cfg: RenderConfig, dp: int, sp: int,
     if not 0 <= dp_idx < dp:
         raise ValueError(f"rank {rank} is outside the {dp}x{sp} grid")
     key = rng.key(cfg.seed if seed is None else seed)
-    pix = slab_ids(cfg, dp, dp_idx, scene.device)
-    eye = torch.zeros((pix.shape[0], 3), device=scene.device)
-    light = torch.zeros((cfg.width * cfg.height, 3), device=scene.device)
-    for i in range(cfg.spp // sp):
-        e, li = _pass(scene, rng.fold_in(key, i * sp + sp_idx), pix, cfg)
-        eye = eye + e
-        light = light + li
-    return eye, light
+    dev = scene.device
+    pix = slab_ids(cfg, dp, dp_idx, dev)
+    keys = rng.pass_keys(key, [i * sp + sp_idx for i in range(cfg.spp // sp)],
+                         dev)
+    out = step_graph.run_chunk(scene, dataclasses.replace(cfg, cell=None),
+                               cfg.width, cfg.height, pix, keys,
+                               eye_scale=1.0)
+    if cfg.integrator == "bdpt":
+        return out["eye"], out["light"]
+    return out["acc"], torch.zeros((cfg.width * cfg.height, 3), device=dev)
 
 
 def reduce_frame(eyes, lights, cfg: RenderConfig, dp: int, sp: int):

@@ -32,7 +32,9 @@ parallel builds counted once: the kernel builds fall in compile_s, the
 native BVH builder's in the load), scene_file (null for the Cornell
 box), kernel_route (ops/intersect.py), launches and warmup_launches
 (each hit kernel's launches over the timed chunks and over the warm-up),
-device, and gpu (nvidia-smi's name and power limit).  A row that fails prints its
+device, and gpu (nvidia-smi's name and power limit).  On the card the
+warm-up chunk captures the pass (utils/step_graph.py), so compile_s holds
+the capture, as the JAX bench's holds the compile.  A row that fails prints its
 traceback; the other rows still run and the exit code is then 1.
 """
 
@@ -49,6 +51,10 @@ import traceback
 import torch
 
 from bidirectional_pathtracing_tpu_torch.ops._build import build_seconds
+# each hit kernel's launch count, which a replayed pass advances as the
+# eager pass does (utils/step_graph.py)
+from bidirectional_pathtracing_tpu_torch.utils.step_graph import (  # noqa
+    launch_counts, launches_since)
 
 REF_SAMPLES_PER_S = 480 * 360 * 32 / 308.0
 # the reference renderer's checkout, where the JAX package and its tools
@@ -76,22 +82,6 @@ def gpu_line(device) -> str | None:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
-
-
-def launch_counts() -> dict:
-    """Every hit kernel wrapper's launch count in this process."""
-    from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
-    from bidirectional_pathtracing_tpu_torch.ops import intersect_bvh as ibv
-    from bidirectional_pathtracing_tpu_torch.ops import (
-        intersect_clustered as icl)
-    return {"brute_hit": ib.brute_hit.launches,
-            "clustered_hit": icl.clustered_hit.launches,
-            "bvh_walk": ibv.bvh_walk.launches}
-
-
-def launches_since(before: dict) -> dict:
-    """Each hit kernel's launches since launch_counts() returned `before`."""
-    return {k: v - before[k] for k, v in launch_counts().items()}
 
 
 def kernels_cached() -> dict:

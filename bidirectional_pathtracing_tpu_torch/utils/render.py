@@ -5,10 +5,14 @@ Plays the role of RaytracedRenderer (reference
 src/pathtracer/raytraced_renderer.cpp) without the thread pool: the frame
 (or the cell) is a flat wavefront of pixels, one call of models/bdpt.py
 sample_pass or models/pathtracer.py trace_radiance renders one
-sample-per-pixel pass on the scene's device, and the host loop accumulates
-passes there.  Pass i uses the key fold_in(key(seed), i) (threefry,
+sample-per-pixel pass on the scene's device, and the passes of a chunk
+accumulate there.  Pass i uses the key fold_in(key(seed), i) (threefry,
 core/rng.py), as the JAX package does, so both packages draw the same
-samples.
+samples.  On the card each pass of a chunk is a replay of one captured
+pass (utils/step_graph.py), the counterpart of the JAX package's jitted
+step and its scan over a chunk's passes; on the CPU, under
+step_graph.disabled() and through PLAIN or SORTED the same pass runs
+eagerly, with the same bits.
 
 Implements, as the JAX driver does:
   - the BDPT (eye / light / combined buffers, bidirection.h:81) and the
@@ -23,12 +27,12 @@ Implements, as the JAX driver does:
   - end-of-run stats: wall time, rays traced, Mrays/s
     (raytraced_renderer.cpp:677-683).
 
-Not ported: the JAX package's AOT warm start (utils/aot.py; the port has
-no traced render step to persist).  As in the JAX package, render() does
-not read cfg.envmap_path: the caller attaches the envmap to the scene, as
-cli.py does (utils/exr.py read_exr, then ops/envlight.py build_envmap).
-Where the path is set and the scene carries no envmap, render() raises
-instead of rendering without it.
+Not ported: the JAX package's AOT warm start (utils/aot.py; a CUDA graph
+lives in its process, so there is no compiled step to persist).  As in
+the JAX package, render() does not read cfg.envmap_path: the caller
+attaches the envmap to the scene, as cli.py does (utils/exr.py read_exr,
+then ops/envlight.py build_envmap).  Where the path is set and the scene
+carries no envmap, render() raises instead of rendering without it.
 """
 
 from __future__ import annotations
@@ -45,8 +49,7 @@ from bidirectional_pathtracing_tpu_torch.core import rng
 from bidirectional_pathtracing_tpu_torch.ops.intersect import (
     DISPATCH, Intersector)
 from bidirectional_pathtracing_tpu_torch.scene.types import Scene
-
-_LUMINANCE = (0.2126, 0.7152, 0.0722)
+from bidirectional_pathtracing_tpu_torch.utils import step_graph
 
 
 @dataclasses.dataclass
@@ -103,22 +106,14 @@ def _bdpt_step_chunk(scene: Scene, key, base: int, cfg: RenderConfig,
     to the running sums eye [H*W,3] (scaled by 1/spp) and light [H*W,3]:
     pass by pass, so the chunk size never changes the bits.  In cell mode
     the eye radiance of the cell's pixel ids `pix` is scattered in; the
-    ids are unique, so index_add_ is deterministic there.  Returns
-    (eye, light, rays int64 tensor)."""
-    from bidirectional_pathtracing_tpu_torch.models import bdpt
-    inv = 1.0 / cfg.spp
-    rays = torch.zeros((), dtype=torch.int64, device=pix.device)
-    for i in range(chunk):
-        eye_i, light_i, st = bdpt.sample_pass(
-            scene, rng.fold_in(key, base + i), width, height, pix, cfg,
-            return_stats=True, inv_ns_aa=inv, isect=isect)
-        if cfg.cell:
-            eye = eye.index_add(0, pix, eye_i * inv)
-        else:
-            eye = eye + eye_i * inv
-        light = light + light_i   # splats already carry 1/ns_aa
-        rays = rays + st["rays"]
-    return eye, light, rays
+    ids are unique, so index_add_ is deterministic there.  Each pass is a
+    replay of the captured pass on the card, the eager pass elsewhere
+    (utils/step_graph.py route).  Returns new tensors (eye, light, rays
+    int64)."""
+    keys = rng.pass_keys(key, range(base, base + chunk), pix.device)
+    out = step_graph.run_chunk(scene, cfg, width, height, pix, keys, isect,
+                               "bdpt", start={"eye": eye, "light": light})
+    return out["eye"], out["light"], out["rays"]
 
 
 def _pt_step_chunk(scene: Scene, key, base: int, cfg: RenderConfig,
@@ -126,27 +121,14 @@ def _pt_step_chunk(scene: Scene, key, base: int, cfg: RenderConfig,
                    isect: Intersector = DISPATCH):
     """`chunk` PT passes with keys fold_in(key, base + i).  `active` [S]
     masks converged lanes (adaptive sampling, pathtracer.cpp:301-333).
-    Returns the chunk's radiance sum [S,3], luminance moment sums s1, s2
-    [S] for the CI rule, and the measured rays (int64 tensor)."""
-    from bidirectional_pathtracing_tpu_torch.models import pathtracer as pt
-    s = pix.shape[0]
-    dev = pix.device
-    lum_w = torch.tensor(_LUMINANCE, device=dev)
-    acc = torch.zeros((s, 3), device=dev)
-    s1 = torch.zeros((s,), device=dev)
-    s2 = torch.zeros((s,), device=dev)
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
-    for i in range(chunk):
-        keys = rng.lane_keys(rng.fold_in(key, base + i), pix)
-        o, d = pt.sample_camera_rays(scene, keys, width, height, pix, cfg)
-        L, st = pt.trace_radiance(scene, o, d, keys, cfg, return_stats=True,
-                                  isect=isect)
-        lum = torch.sum(L * lum_w, dim=-1)
-        acc = acc + torch.where(active[:, None], L, 0.0)
-        s1 = s1 + torch.where(active, lum, 0.0)
-        s2 = s2 + torch.where(active, lum * lum, 0.0)
-        rays = rays + st["rays"]
-    return acc, s1, s2, rays
+    Each pass is a replay of the captured pass on the card, the eager pass
+    elsewhere (utils/step_graph.py route).  Returns the chunk's radiance
+    sum [S,3], luminance moment sums s1, s2 [S] for the CI rule, and the
+    measured rays (int64 tensor)."""
+    keys = rng.pass_keys(key, range(base, base + chunk), pix.device)
+    out = step_graph.run_chunk(scene, cfg, width, height, pix, keys, isect,
+                               "pt", active=active)
+    return out["acc"], out["s1"], out["s2"], out["rays"]
 
 
 def render(scene: Scene, cfg: RenderConfig, seed: Optional[int] = None,

@@ -107,7 +107,11 @@ class Viewer:
         return dataclasses.replace(self.cfg, spp=1, cell=cell)
 
     def tick(self):
-        """Render one progressive pass and fold it into the running mean."""
+        """Render one progressive pass and fold it into the running mean.
+        On the card the pass is a replay of the captured pass
+        (utils/step_graph.py), captured on the first tick in
+        "thread_local" mode: the HTTP threads' CUDA calls (frame_png,
+        key_press) cannot break the capture."""
         if self.mode != RENDER_MODE or self.passes >= self.cfg.spp:
             return False
         from bidirectional_pathtracing_tpu_torch.core import rng

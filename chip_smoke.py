@@ -192,6 +192,24 @@ a zero exit):
           (10,252 and 40,972 triangles), midpoint and SAH, each cell in a
           fresh process at 480x360 d5 8 spp in one chunk through K2 (88
           launches); the two cuts' frames within phase 3a's gates.
+ 14. the captured pass (utils/step_graph.py, the port of the JAX step's
+     jax.jit and lax.scan): eight cells at 480x360 d5 8 spp in one chunk,
+     BDPT on the Cornell box (K1), the open env scene (K1), L6 and L6 with
+     the sky (K2), the PT on the Cornell box and L6, and BDPT on the
+     164,032-triangle file through K2 and, its clusters detached, through
+     the walk kernel; each rendered eager (step_graph.disabled()), graph,
+     eager, graph in this process.  Gates: every turn's eye, light (the
+     PT's image) and measured rays bitwise the first eager turn's, its
+     launches equal and, where the path fixes them, 8 x 11 (BDPT, area
+     light), 8 x 18 (with the sky) or 8 x 10 (PT).  Each cell prints both
+     modes' samples/s and pass time, capture_s, the graph's nodes and
+     its pool bytes.
+
+Every earlier phase renders through the captured pass too, since it is
+render()'s default on the card.  Phases 12 and 14 share one load of the
+164,032-triangle file (load_big), made before phase 12; every load
+through an entry point (the CLI in 9a-9c and 12e, the flagship row in
+13b) is its own.  The script prints its total seconds.
 
 Kernel times (utils/timing.py): device_ms is the kernel's own duration
 on the device, from torch.profiler's kernel records (or CUDA events
@@ -236,7 +254,7 @@ phase 12d's render.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and before that one JSON line
 lists the kernels with their launches, errors and times.  The same kernels
-and the gates of phases 10-13 go to artifacts/GPU_KERNEL_CHECK.json.
+and the gates of phases 10-14 go to artifacts/GPU_KERNEL_CHECK.json.
 """
 
 from __future__ import annotations
@@ -1551,9 +1569,29 @@ def hold_walk_vs_plain(label, got, ref):
             "differ": 0, "n_max_abs": n_err}
 
 
-def phase12_bvh(dev, gpu):
-    """Phase 12 (see the module docstring).  Returns (detail, the walk
-    kernel's times and bounds, its launches on the main path)."""
+def load_big(dev):
+    """The mesh box written at DAE_LEVEL and subdivided twice
+    (UPSAMPLED_TRIS triangles) loaded at W x H: (scene, aux, seconds)."""
+    import tempfile
+
+    import torch
+    from bidirectional_pathtracing_tpu_torch.scene.build import load_scene
+    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+        write_cornell_box_dae)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_load_") as tmp:
+        dae = os.path.join(tmp, f"cbox_L{DAE_LEVEL}.dae")
+        write_cornell_box_dae(dae, DAE_LEVEL)
+        t0 = time.perf_counter()
+        scene, aux = load_scene(dae, W, H, mesh_ops=("upsample", "upsample"),
+                                device=dev)
+        torch.cuda.synchronize()
+    return scene, aux, time.perf_counter() - t0
+
+
+def phase12_bvh(dev, gpu, big):
+    """Phase 12 (see the module docstring) on big, load_big's output.
+    Returns (detail, the walk kernel's times and bounds, its launches on
+    the main path)."""
     import tempfile
     import threading
     import urllib.error
@@ -1571,7 +1609,6 @@ def phase12_bvh(dev, gpu):
     from bidirectional_pathtracing_tpu_torch.scene import bvh as bvh_mod
     from bidirectional_pathtracing_tpu_torch.scene import (
         clusters as clusters_mod)
-    from bidirectional_pathtracing_tpu_torch.scene.build import load_scene
     from bidirectional_pathtracing_tpu_torch.scene.bvh import build_bvh
     from bidirectional_pathtracing_tpu_torch.scene.procedural import (
         make_cornell_box, write_cornell_box_dae)
@@ -1588,13 +1625,9 @@ def phase12_bvh(dev, gpu):
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bvh_") as tmp:
         # --- 12a: the load and the builds ---------------------------------
-        dae = os.path.join(tmp, f"cbox_L{DAE_LEVEL}.dae")
+        dae = os.path.join(tmp, f"cbox_L{DAE_LEVEL}.dae")   # 12e's CLI input
         write_cornell_box_dae(dae, DAE_LEVEL)
-        t0 = time.perf_counter()
-        scene, aux = load_scene(dae, W, H, mesh_ops=("upsample", "upsample"),
-                                device=dev)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
+        scene, aux, load_s = big
         g, cl = scene.geometry, scene.clusters
         check(g.num_tris == UPSAMPLED_TRIS, f"phase12a: {g.num_tris} tris")
         check(aux["builder"] == "native", f"phase12a: the load built with "
@@ -2096,9 +2129,120 @@ def phase13_tools(dev, gpu):
     return detail, launches
 
 
+# --- phase 14: the captured pass against the eager pass ----------------------
+
+P14_SPP = 8
+
+
+def phase14_graph(dev, gpu, mesh, big):
+    """Phase 14: each cell at 480x360 d5 8 spp in one chunk, rendered
+    eager, graph, eager, graph in this process (eager under
+    step_graph.disabled()); every turn's eye, light (the PT's image) and
+    rays bitwise equal, its launches equal and, where the path's count is
+    fixed, that count a pass; big is load_big's scene.  Returns a detail
+    dict."""
+    import torch
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.ops.envlight import build_envmap
+    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+        make_cornell_box, make_open_env_scene, synthetic_sky)
+    from bidirectional_pathtracing_tpu_torch.utils import step_graph
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+
+    t_phase = time.perf_counter()
+    box = make_cornell_box(W, H, sphere_materials=("mirror", "glass"),
+                           device=dev)
+    sky = mesh._replace(envmap=build_envmap(synthetic_sky(), device=dev))
+    check(big.geometry.num_tris == UPSAMPLED_TRIS and big.clusters is not None,
+          "phase14: the .dae load")
+    area, env = BDPT_PER_PASS["area"], BDPT_PER_PASS["area+env"]
+    # (cell, scene, integrator, (K1, K2, walk) launches a pass or None)
+    cells = [
+        ("cornell_bdpt", box, "bdpt", (area, 0, 0)),
+        ("envopen_bdpt", make_open_env_scene(device=dev), "bdpt", None),
+        (f"meshbox_L{MESH_LEVEL}_bdpt", mesh, "bdpt", (0, area, 0)),
+        (f"meshbox_L{MESH_LEVEL}_sky_bdpt", sky, "bdpt", (0, env, 0)),
+        ("cornell_pt", box, "pt", (PT_PER_PASS, 0, 0)),
+        (f"meshbox_L{MESH_LEVEL}_pt", mesh, "pt", (0, PT_PER_PASS, 0)),
+        ("dae_164k_bdpt", big, "bdpt", (0, area, 0)),
+        ("dae_164k_walk_bdpt", big._replace(clusters=None), "bdpt",
+         (0, 0, area)),
+    ]
+    detail = {}
+    for label, scene, integrator, per_pass in cells:
+        cfg = RenderConfig(spp=P14_SPP, max_ray_depth=DEPTH, width=W,
+                           height=H, integrator=integrator, seed=0,
+                           samples_per_chunk=P14_SPP)
+        step_graph.clear()
+        turns = []
+        for mode in ("eager", "graph", "eager", "graph"):
+            torch.cuda.synchronize()
+            zero_counts()
+            if mode == "eager":
+                with step_graph.disabled():
+                    res = render(scene, cfg)
+            else:
+                res = render(scene, cfg)
+            n = counts()
+            turns.append((mode, res, n))
+        (p,) = step_graph.cached()
+        check(p.scene is scene, f"phase14 {label}: the cached pass's scene")
+        ref = turns[0][1]
+        check(np.isfinite(ref.combined).all() and ref.combined.mean() > 0,
+              f"phase14 {label}: non-finite or black")
+        for mode, res, n in turns[1:]:
+            for k in ("combined", "eye", "light"):
+                a, b = getattr(ref, k), getattr(res, k)
+                check((a is None and b is None) or np.array_equal(a, b),
+                      f"phase14 {label}: {mode} {k} differs from eager's")
+            check(res.stats["rays"] == ref.stats["rays"],
+                  f"phase14 {label}: {mode} rays {res.stats['rays']} vs "
+                  f"{ref.stats['rays']}")
+            check(n == turns[0][2], f"phase14 {label}: {mode} launches {n} "
+                  f"vs eager {turns[0][2]}")
+        launches = turns[0][2]
+        if per_pass is not None:
+            check(launches == tuple(P14_SPP * x for x in per_pass),
+                  f"phase14 {label}: launches {launches}, want "
+                  f"{P14_SPP} x {per_pass}")
+        else:
+            check(launches[0] > 0 and launches[1:] == (0, 0),
+                  f"phase14 {label}: launches {launches}")
+        rec = {
+            "launches": launches,
+            "launches_per_pass": [x // P14_SPP for x in launches],
+            "samples_per_s": {
+                mode: [r.stats["camera_samples_per_s"]
+                       for m, r, _ in turns if m == mode]
+                for mode in ("eager", "graph")},
+            "pass_s": {
+                mode: [r.stats["wall_time_s"] / P14_SPP
+                       for m, r, _ in turns if m == mode]
+                for mode in ("eager", "graph")},
+            "capture_s": p.capture_s, "nodes": p.nodes,
+            "pool_bytes": p.pool_bytes, "graph_launches": p.launches,
+            "rays": ref.stats["rays"],
+            "frame_mean": float(ref.combined.mean()), "bitwise": True}
+        detail[label] = rec
+        sps = rec["samples_per_s"]
+        print(f"[phase14] {label}: samples/s eager "
+              f"{sps['eager'][0]:.1f} / {sps['eager'][1]:.1f}, graph "
+              f"{sps['graph'][0]:.1f} (capture included) / "
+              f"{sps['graph'][1]:.1f}; pass eager "
+              f"{rec['pass_s']['eager'][1]:.4f} s, graph "
+              f"{rec['pass_s']['graph'][1]:.4f} s; capture_s "
+              f"{p.capture_s:.3f}, nodes {p.nodes}, pool "
+              f"{p.pool_bytes} B; launches {launches}; bitwise ({gpu})")
+    step_graph.clear()
+    detail["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase14] {detail['seconds']:.1f} s")
+    return detail
+
+
 def main() -> int:
     import torch
 
+    t_script = time.perf_counter()
     # --- phase 0 -----------------------------------------------------------
     print(f"[phase0] python {sys.version.split()[0]} torch {torch.__version__}"
           f" cuda {torch.version.cuda}")
@@ -2318,9 +2462,11 @@ def main() -> int:
     cli, cli_launches = phase9_cli(gpu)
     grad, grad_launches = phase10_grad(dev, gpu, mesh)
     mp, mp_launches = phase11_multiprocess(dev, gpu, mesh)
-    del mesh
-    bvh12, walk_times, walk_launches, walk_err = phase12_bvh(dev, gpu)
+    big = load_big(dev)
+    bvh12, walk_times, walk_launches, walk_err = phase12_bvh(dev, gpu, big)
     tools13, tool_launches = phase13_tools(dev, gpu)
+    graph14 = phase14_graph(dev, gpu, mesh, big[0])
+    del big, mesh
 
     # Every kernel: ms is device_ms, the kernel's own time on the device
     # (utils/timing.py; device_source says whether from the profiler or a
@@ -2423,7 +2569,8 @@ def main() -> int:
                   "mrays_per_s": st8s["mrays_per_s"],
                   "wall_s": st8s["wall_time_s"], "vs_default_rel": rel_5s},
               "k3": k3["detail"], "env": env, "pt": pt, "cli": cli,
-              "grad": grad, "mp": mp, "bvh": bvh12, "tools": tools13}
+              "grad": grad, "mp": mp, "bvh": bvh12, "tools": tools13,
+              "graph": graph14}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     os.makedirs(os.path.dirname(KERNEL_CHECK), exist_ok=True)
@@ -2431,9 +2578,13 @@ def main() -> int:
         json.dump({"ok": True, "gpu": gpu, "device": device,
                    "kernels": kernels["kernels"],
                    "gates": {"phase10": grad, "phase11": mp,
-                             "phase12": bvh12, "phase13": tools13}},
+                             "phase12": bvh12, "phase13": tools13,
+                             "phase14": graph14}},
                   f, indent=1)
+    total_s = time.perf_counter() - t_script
+    detail["total_s"] = total_s
     print(f"[detail] {json.dumps(detail)}")
+    print(f"[total] chip_smoke.py ran {total_s:.1f} s")
     print(json.dumps(kernels))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": device}))

@@ -11,7 +11,9 @@ on a .dae file through K1; gradients through K1 against the plain
 version, the wrappers' refusal of rays that require grad, the
 inverse-rendering example at its defaults, and a two-process render
 (parallel/launch.py) on one card; the BVH walk kernel, the viewer and the
-visualizer; and the measurement tools' bench and flagship rows.
+visualizer; the measurement tools' bench and flagship rows; and the
+captured pass (utils/step_graph.py) bitwise the eager pass, in render(),
+in the ranks' passes and replayed after another scene's render.
 
 Jax-free, so it runs where the card is (that machine has no jax; the
 repo's conftest imports it, so pass --noconftest):
@@ -986,3 +988,147 @@ def test_flagship_row_through_clustered_kernel_on_card(cuda, tmp_path):
     ref = render(scene, cfg)
     for k in ("eye", "light", "combined"):
         np.testing.assert_array_equal(getattr(res, k), getattr(ref, k))
+
+
+# --- the captured pass (utils/step_graph.py) ---------------------------------
+
+def _graph_scene(name, device):
+    if name == "cornell":
+        return make_cornell_box(sphere_materials=("mirror", "glass"),
+                                device=device)
+    return attach_accelerator(make_mesh_cornell_box(4, device=device))
+
+
+@pytest.mark.parametrize("integrator", ["bdpt", "pt"])
+@pytest.mark.parametrize("name", ["cornell", "meshbox_L4"])
+def test_graph_render_is_eager_render_bitwise(cuda, name, integrator):
+    """render() on the card replays the captured pass by default; under
+    step_graph.disabled() it runs the same pass eagerly.  At 96x72 d5,
+    3 spp in chunks of 2 (replays of 2 and 1), the eye and light images
+    (the PT's image), the measured rays and every launch count are
+    equal, bitwise; the captured pass reports its nodes and pool."""
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.tools.bench import (
+        launch_counts, launches_since)
+    from bidirectional_pathtracing_tpu_torch.utils import step_graph
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+    scene = _graph_scene(name, cuda)
+    cfg = RenderConfig(integrator=integrator, spp=3, max_ray_depth=5,
+                       width=96, height=72, samples_per_chunk=2)
+    step_graph.clear()
+
+    def run():
+        before = launch_counts()
+        res = render(scene, cfg)
+        return res, launches_since(before)
+    with step_graph.disabled():
+        eager, eager_n = run()
+    assert not step_graph.cached()
+    graph, graph_n = run()
+    again, again_n = run()                 # a cache hit: no capture
+    (p,) = step_graph.cached()
+    assert p.scene is scene and p.capture_s > 0 and p.pool_bytes > 0
+    assert p.nodes > 100
+    for res in (graph, again):
+        for k in ("combined", "eye", "light"):
+            a, b = getattr(eager, k), getattr(res, k)
+            if a is None:
+                assert b is None
+            else:
+                np.testing.assert_array_equal(b, a, err_msg=k)
+        assert res.stats["rays"] == eager.stats["rays"] > 0
+    assert graph_n == again_n == eager_n and sum(eager_n.values()) > 0
+    assert eager.combined.mean() > 0
+    step_graph.clear()
+
+
+def test_rank_passes_through_graph_are_eager_bitwise(cuda):
+    """parallel/render.py's ranks run their passes through the captured
+    pass too: a dp2 x sp2 frame bitwise the eager one."""
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.parallel.render import (
+        render_frame_sharded)
+    from bidirectional_pathtracing_tpu_torch.utils import step_graph
+    scene = make_cornell_box(sphere_materials=("mirror", "glass"),
+                             device=cuda)
+    cfg = RenderConfig(spp=4, max_ray_depth=4, width=64, height=48)
+    with step_graph.disabled():
+        ref = render_frame_sharded(scene, cfg, dp=2, sp=2)
+    got = render_frame_sharded(scene, cfg, dp=2, sp=2)
+    assert step_graph.cached()
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(b, a)
+    assert ref[1].sum() > 0
+    step_graph.clear()
+
+
+def _scribble(tables):
+    """Fresh tensors of the sizes of the tables' device tensors, filled
+    with values no table holds: they take blocks that the allocator got
+    back from dropped tables."""
+    fill = {torch.float32: float("nan"), torch.uint8: 1, torch.int32: 0}
+    return [torch.full_like(t, fill[t.dtype]) for _ in range(8)
+            for t in tables if t.is_cuda]
+
+
+@pytest.mark.parametrize("route", ["bvh", "brute"])
+def test_cached_pass_outlives_the_next_scenes_tables(cuda, route,
+                                                      monkeypatch):
+    """The walk kernel's tables and K1's above its parameter cap are built
+    outside the graph's pool and cached for the last scene only
+    (ops/_memo.py).  Render A, B, A (two clusterless walk scenes, or two
+    K1 scenes above the cap) with no clear() between: A's second render
+    replays its cached pass after B's render dropped A's tables from the
+    cache and fresh tensors of their sizes were made.  Every graph render
+    is bitwise its eager render under step_graph.disabled(), with equal
+    launches."""
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.ops import intersect as ti
+    from bidirectional_pathtracing_tpu_torch.ops import intersect_bvh as ibv
+    from bidirectional_pathtracing_tpu_torch.scene.bvh import build_bvh
+    from bidirectional_pathtracing_tpu_torch.tools.bench import (
+        launch_counts, launches_since)
+    from bidirectional_pathtracing_tpu_torch.utils import step_graph
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+    if route == "bvh":
+        monkeypatch.setattr(ti, "_BRUTE_MAX_TRIS", 8)
+        scenes = [make_cornell_box(sphere_materials=("mirror", "glass"),
+                                   device=cuda),
+                  make_mesh_cornell_box(2, device=cuda)]
+        scenes = [s._replace(bvh=build_bvh(s.geometry)) for s in scenes]
+        memo = ibv._tables
+    else:
+        cap = ib.param_caps()[0]
+        scenes = [_soup(cuda, n_tris=cap + 1000, seed=8),
+                  _soup(cuda, n_tris=cap + 2000, seed=9)]
+        memo = ib._tables
+    for s in scenes:
+        assert ti.kernel_route(s) == route
+    cfg = RenderConfig(spp=2, max_ray_depth=4, width=64, height=48)
+
+    def run(scene):
+        before = launch_counts()
+        res = render(scene, cfg)
+        return res, launches_since(before)
+    with step_graph.disabled():
+        eager = [run(s) for s in scenes]
+    step_graph.clear()
+    got = [run(scenes[0])]
+    a_tables = memo.last[2]
+    got.append(run(scenes[1]))
+    assert memo.last[2] is not a_tables
+    junk = _scribble(a_tables)
+    del a_tables
+    got.append(run(scenes[0]))
+    cached = step_graph.cached()               # oldest first: B, then A
+    assert len(cached) == 2 and all(
+        p.scene is s for p, s in zip(cached, scenes[::-1]))
+    for (res, n), (ref, ref_n) in zip(got, [*eager, eager[0]]):
+        for k in ("eye", "light", "combined"):
+            np.testing.assert_array_equal(getattr(res, k), getattr(ref, k),
+                                          err_msg=k)
+        assert res.stats["rays"] == ref.stats["rays"] and n == ref_n
+        assert n[{"bvh": "bvh_walk", "brute": "brute_hit"}[route]] > 0
+    assert ref.combined.mean() > 0
+    del junk
+    step_graph.clear()

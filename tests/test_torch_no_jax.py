@@ -67,6 +67,14 @@ def test_probe_covers_the_bvh_slice():
         assert f"{PKG}.{mod}" in names, mod
 
 
+def test_probe_covers_the_step_graph():
+    """The probe above imports the captured render step, the port's
+    counterpart of the JAX package's jitted step."""
+    names = {m.name for m in pkgutil.walk_packages(
+        [os.path.join(REPO, PKG)], PKG + ".")}
+    assert f"{PKG}.utils.step_graph" in names
+
+
 def test_probe_covers_the_measurement_tools():
     """The probe above imports the measurement entry points too: the
     ports of bench.py and of the JAX tools/flagship_render.py,
