@@ -10,7 +10,9 @@ mean(light) of one BDPT pass, or mean(L) of one PT pass, over the whole
 frame at the given pass key.  Sampling is detached and hits carry no
 gradient (ops/intersect.py), so with the key fixed (common random
 numbers) the loss is a smooth function of each lever, and a central
-difference holds its gradient.
+difference holds its gradient.  gradients() runs one forward and backward
+eagerly; grad_step() is the same value and gradient as a
+utils/step_graph.py GradStep, one CUDA graph on the card.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from bidirectional_pathtracing_tpu_torch.core import rng
 from bidirectional_pathtracing_tpu_torch.ops.intersect import (
     DISPATCH, Intersector)
 from bidirectional_pathtracing_tpu_torch.scene.types import Scene
+from bidirectional_pathtracing_tpu_torch.utils import step_graph
 
 LEVERS = ("albedo", "emission", "radiance", "log_scale")
 FD_ENTRIES = 4       # the entries of largest |grad| that are checked
@@ -96,6 +99,25 @@ def gradients(scene: Scene, cfg: RenderConfig, key, names,
     t2 = time.perf_counter()
     return (loss.item(), {n: p.grad for n, p in params.items()},
             {"forward": t1 - t0, "backward": t2 - t1})
+
+
+def grad_step(scene: Scene, cfg: RenderConfig,
+              names) -> step_graph.GradStep:
+    """pass_loss's value and gradient in the named levers at the lever
+    values of `scene`, through DISPATCH, as a GradStep with no update:
+    run(key) (a [2] int64 pass key on the scene's device, as lane_keys
+    reads it) returns (loss, gradients in the order of names)."""
+    names = tuple(names)
+    params = tuple(lever(scene, n).detach().clone().requires_grad_(True)
+                   for n in names)
+
+    def loss_fn(*args):
+        *p, key = args
+        return pass_loss(with_levers(scene, **dict(zip(names, p))), cfg, key)
+
+    return step_graph.GradStep(loss_fn, params,
+                               (torch.zeros((2,), dtype=torch.int64,
+                                            device=scene.device),))
 
 
 def finite_differences(scene: Scene, cfg: RenderConfig, key, name: str,

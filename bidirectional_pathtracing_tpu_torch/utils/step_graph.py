@@ -61,6 +61,18 @@ it is given); none where a scene tensor requires grad (the gradient path,
 utils/gradcheck.py, calls sample_pass itself).  Every other chunk on the
 card is replayed.  run_chunk is the chunk drivers' entry point
 (utils/render.py, parallel/render.py).
+
+GradStep is the counterpart of the JAX package's jitted training step
+(examples/inverse_rendering.py:140-148 and :214-221: the forward, its
+jax.value_and_grad and optax.adam's update in one dispatch): a loss over
+static input buffers, its gradient by torch.autograd.grad in the
+parameter leaves and an optional in-place update, captured into one CUDA
+graph by capture_cuda and replayed for every step.  The warm-up step
+applies an update that the capture only records, so the parameters and
+the update's state are restored after the capture: the first replay is
+the first step.  It holds the tables its capture read and counts the
+capture's hit launches on each replay, as a Pass does; grad_route() runs
+it eagerly on the CPU and under disabled().
 """
 
 from __future__ import annotations
@@ -405,6 +417,108 @@ def graphed_pass(scene: Scene, cfg: RenderConfig, width: int, height: int,
              tuple(tables.values()))
     _cache[key] = p
     return p
+
+
+def grad_route(params) -> str:
+    """"graph" or "eager": how a GradStep over the parameter leaves params
+    runs (eager on the CPU and under disabled())."""
+    if _disabled or not all(p.is_cuda for p in params):
+        return "eager"
+    return "graph"
+
+
+class GradStep:
+    """One training step over static buffers: loss_fn(*params, *inputs),
+    its gradient in params and update(grads), run eagerly or replayed from
+    the CUDA graph that the first run() captures (capture_cuda).
+
+    params: leaf tensors that require grad, read in place by every step.
+    inputs: tensors of the shapes and dtypes of run()'s arguments (the
+    pass key, a [2] int64 tensor, core/rng.py pass_keys; a target image).
+    update(grads), if given, changes params and the tensors of `state` (a
+    nested tuple such as the Adam state) in place; it runs under no_grad.
+    The graph owns every tensor a step writes: the gradients come from
+    torch.autograd.grad inside it, the loss (and, with no update, the
+    gradients) are copied into buffers made here, and params and state are
+    the caller's, made before the capture.  route: grad_route(params)
+    when the step is made."""
+
+    def __init__(self, loss_fn: Callable, params, inputs,
+                 update: Optional[Callable] = None, state=()):
+        self.loss_fn = loss_fn
+        self.params = tuple(params)
+        self.inputs = tuple(torch.empty_like(x) for x in inputs)
+        self.update = update
+        self.state = tuple(_tensors(state))
+        self.loss = torch.zeros((), device=self.params[0].device)
+        self.grads = (() if update is not None else
+                      tuple(torch.zeros_like(p) for p in self.params))
+        self.route = grad_route(self.params)
+        self._replay = self._body if self.route == "eager" else None
+        self.launches: dict = {}
+        self.graph = None
+        self.tables: tuple = ()
+        self.capture_s = self.pool_bytes = self.nodes = None
+
+    def _body(self):
+        with torch.enable_grad():
+            loss = self.loss_fn(*self.params, *self.inputs)
+            grads = torch.autograd.grad(loss, self.params)
+        with torch.no_grad():
+            self.loss.copy_(loss)
+            for buf, g in zip(self.grads, grads):
+                buf.copy_(g)
+            if self.update is not None:
+                self.update(grads)
+
+    def _capture(self):
+        written = self.params + self.state
+        with torch.no_grad():
+            saved = [t.clone() for t in written]
+        counts = launch_counts()
+        try:
+            with _memo.holding() as tables:
+                cap = capture_cuda(self._body, self.params[0].device)
+        finally:
+            _set_counts(counts)
+            with torch.no_grad():   # undo the warm-up step's update
+                for t, s in zip(written, saved):
+                    t.copy_(s)
+        self._replay, self.launches, self.graph = (cap.replay, cap.launches,
+                                                   cap.graph)
+        self.capture_s, self.pool_bytes, self.nodes = (
+            cap.capture_s, cap.pool_bytes, cap.nodes)
+        self.tables = tuple(tables.values())
+
+    def replay(self):
+        """One step on the inputs already in the buffers (the first call
+        on the graph route captures)."""
+        if self._replay is None:
+            if self.route != "graph":
+                raise RuntimeError("this step was released")
+            self._capture()
+        self._replay()
+        _add_counts(self.launches)
+
+    def run(self, *inputs):
+        """One step on these inputs: the loss as a 0-d device tensor, and
+        with no update (loss, gradients), copies of the step's buffers."""
+        for buf, x in zip(self.inputs, inputs, strict=True):
+            buf.copy_(x)
+        self.replay()
+        if self.update is not None:
+            return self.loss.clone()
+        return self.loss.clone(), tuple(g.clone() for g in self.grads)
+
+    def release(self):
+        """Drops the graph, its pool and the tables it reads."""
+        if self.graph is not None:
+            self.graph.reset()
+            torch.cuda.empty_cache()
+        self.graph = None
+        self.tables = ()
+        self.route = "released"
+        self._replay = None
 
 
 def run_chunk(scene: Scene, cfg: RenderConfig, width: int, height: int,

@@ -120,7 +120,10 @@ a zero exit):
        d. examples/inverse_rendering.py in-process: --mode envlight at
           150 steps, lr 0.03, 40x30 (its own convergence assert), and
           --mode box at 480x360 for 10 steps (loss and diffuse albedo error
-          at step 9 below step 0), seconds per step.
+          at step 9 below step 0), seconds per step; each step one replay
+          of its captured GradStep (the example's route on the card), with
+          capture_s, nodes, pool bytes, K1 launches a step and replay ms
+          (CUDA events around 2 more replays after one).
  11. two processes on cuda:0 through parallel/launch.py (gloo on host
      copies, as tests/test_torch_parallel.py starts them): dp2 x sp1 on
      the Cornell box (K1) and dp1 x sp2 on the level-6 mesh box (K2), 480x360
@@ -204,6 +207,33 @@ a zero exit):
      light), 8 x 18 (with the sky) or 8 x 10 (PT).  Each cell prints both
      modes' samples/s and pass time, capture_s, the graph's nodes and
      its pool bytes.
+ 15. the training step as one dispatch (utils/step_graph.py GradStep, the
+     port of the JAX example's jitted step: forward, loss, gradient and
+     optax.adam's update in one CUDA graph), each case eager
+     (step_graph.disabled()), graph, eager, graph in this process:
+       a. the example's box mode at 480x360 (BDPT d3), 10 steps, lr 0.05:
+          the first loss bitwise equal over the turns, their K1 launches
+          equal (K2 and the walk none), the parameters after 10 steps
+          within 1e-4 (the spread is printed; it read 0.0 on an NVIDIA
+          H100 80GB HBM3 at 700 W, where the backward of the lever
+          gathers is a sorted, deterministic scatter), the loss and the
+          diffuse albedo error at step 9 below step 0's;
+       b. the envlight mode at 10d's settings once eager; 10d's run is the
+          graph turn: its own convergence assert, the final errors within
+          1e-3 of the eager run's, the first loss bitwise, K1 launches
+          equal;
+       c. utils/gradcheck.py grad_step, the value and gradient of one
+          480x360 d5 BDPT pass at key 0 with no update, on the Cornell box
+          through K1 (albedo, radiance) and on L6 through K2: the loss
+          bitwise phase 10's, the gradients within 1e-4 (K1) and 1e-3 (K2)
+          of max|g| of 10a's and 10b's, phase 10's tolerances against the
+          plain version (read 0.0 on an NVIDIA H100 80GB HBM3 at 700 W:
+          the same kernels in the same order), 11 launches a step; the
+          forward alone captured too, so that the backward's device time
+          is the replay's less the forward's.
+     Each case prints its seconds a step for each turn (a graph turn's with
+     its capture) and the steady step after the first, replay ms by CUDA
+     events, capture_s, nodes, pool bytes and hit launches a step.
 
 Every earlier phase renders through the captured pass too, since it is
 render()'s default on the card.  Phases 12 and 14 share one load of the
@@ -242,7 +272,8 @@ cli_launches, those of phase 9's runs, grad_launches, those of phase 10's
 gradient runs (a backward launches no kernel), mp_launches, each
 rank's in phase 11, and bench_launches, flagship_launches and
 ab_launches, those of phase 13's bench rows (timed chunks), flagship
-renders and A/B cells (timed chunk).  The walk kernel's line (bvh_walk,
+renders and A/B cells (timed chunk), and train_launches, phase 15's a
+step.  The walk kernel's line (bvh_walk,
 phase 12) counts its work from the plain version's walk of the same rays:
 a slab test per node visited, a Möller–Trumbore per triangle tested and a
 sphere test per sphere tested; its bytes are the rays, its outputs (t,
@@ -254,11 +285,12 @@ phase 12d's render.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and before that one JSON line
 lists the kernels with their launches, errors and times.  The same kernels
-and the gates of phases 10-14 go to artifacts/GPU_KERNEL_CHECK.json.
+and the gates of phases 10-15 go to artifacts/GPU_KERNEL_CHECK.json.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1213,7 +1245,7 @@ def grad_case(label, scene, cfg, names, gpu, plain_cfg=None,
     held to finite differences on its largest entries; radiance also by
     linearity.  With plain_cfg, the same backward through the kernel and
     through PLAIN on plain_scene, held within GRAD_PLAIN_REL of max|g|.
-    Returns a detail record."""
+    Returns (a detail record, {lever: gradient})."""
     import torch
     from bidirectional_pathtracing_tpu_torch.core import rng
     from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
@@ -1265,13 +1297,57 @@ def grad_case(label, scene, cfg, names, gpu, plain_cfg=None,
                                                       plain_cfg.height],
                            "rel_of_max_grad": diffs}
     print(f"[phase10] {label}: {json.dumps(rec)} ({gpu})")
+    return rec, grads
+
+
+ENV_STEPS, BOX_STEPS = 150, 10    # the example's runs in 10d and 15a-b
+TRAIN_TURNS = ("eager", "graph", "eager", "graph")
+TRAIN_REPLAYS = 2       # replays of a captured step timed by CUDA events
+TRAIN_PARAM_TOL = 1e-4  # 15a: parameters after BOX_STEPS steps, abs
+TRAIN_ENV_TOL = 1e-3    # 15b: final errors, eager against graph, abs
+
+
+def env_args(dev):
+    """The example's envlight run of 10d and 15b."""
+    import argparse
+    return argparse.Namespace(steps=ENV_STEPS, lr=0.03, size=[40, 30],
+                              device=dev.type)
+
+
+def box_args(dev):
+    """The example's box run of 10d and 15a, at 480x360."""
+    import argparse
+    return argparse.Namespace(steps=BOX_STEPS, lr=0.05, size=[W, H],
+                              device=dev.type)
+
+
+def grad_step_record(hist, mode, label):
+    """The example run's GradStep (hist["grad_step"]) on the route `mode`;
+    on the graph route its capture_s, nodes, pool bytes, hit launches a
+    step and replay ms (tools/profile_pass.py replay_ms: each replay steps
+    on, so the history is read first); then released."""
+    from bidirectional_pathtracing_tpu_torch.tools.profile_pass import (
+        replay_ms)
+    step = hist["grad_step"]
+    check(step.route == mode, f"{label}: route {step.route}, want {mode}")
+    rec = {"route": step.route}
+    if mode == "graph":
+        check(step.nodes > 0 and step.pool_bytes > 0,
+              f"{label}: nodes {step.nodes}, pool {step.pool_bytes}")
+        rec.update(capture_s=step.capture_s, nodes=step.nodes,
+                   pool_bytes=step.pool_bytes,
+                   launches_per_step=dict(step.launches),
+                   replay_ms=replay_ms(step, step.loss.device,
+                                       TRAIN_REPLAYS))
+    step.release()
     return rec
 
 
 def phase10_grad(dev, gpu, mesh):
     """Gradients of one 480x360 pass at key 0 (10a-10c) and the
     inverse-rendering example in-process (10d).  Returns (detail, {K1
-    launches, K2 launches} of the gradient runs)."""
+    launches, K2 launches} of the gradient runs, {"10a", "10b": the
+    gradients by lever}, 10d's envlight history)."""
     import argparse
 
     from bidirectional_pathtracing_tpu_torch.config import RenderConfig
@@ -1291,67 +1367,69 @@ def phase10_grad(dev, gpu, mesh):
     detail = {}
     # 10a: the Cornell box, BDPT, through K1, and the same backward
     # through PLAIN
-    detail["10a"] = grad_case("10a cornell bdpt", box, cfg("bdpt"),
-                              ("albedo", "radiance"), gpu,
-                              plain_cfg=cfg("bdpt"), plain_scene=box)
+    grads = {}
+    detail["10a"], grads["10a"] = grad_case(
+        "10a cornell bdpt", box, cfg("bdpt"), ("albedo", "radiance"), gpu,
+        plain_cfg=cfg("bdpt"), plain_scene=box)
     check(detail["10a"]["k1"] > 0 and detail["10a"]["k2"] == 0,
           "phase10a: K1 / K2 launches")
     # 10b: the L6 mesh box through K2; K2 against PLAIN at L4 120x90
     level, pw, ph = GRAD_PLAIN
     mesh4 = attach_accelerator(make_mesh_cornell_box(level, device=dev))
-    detail["10b"] = grad_case(f"10b meshbox_L{MESH_LEVEL} bdpt", mesh,
-                              cfg("bdpt"), ("albedo", "radiance"), gpu,
-                              plain_cfg=cfg("bdpt", pw, ph),
-                              plain_scene=mesh4)
+    detail["10b"], grads["10b"] = grad_case(
+        f"10b meshbox_L{MESH_LEVEL} bdpt", mesh, cfg("bdpt"),
+        ("albedo", "radiance"), gpu, plain_cfg=cfg("bdpt", pw, ph),
+        plain_scene=mesh4)
     check(detail["10b"]["k2"] > 0 and detail["10b"]["k1"] == 0,
           "phase10b: K1 / K2 launches")
     del mesh4
     # 10c: the PT with pt_mis: the open env scene (albedo, env log-scale)
     # and the Cornell box (albedo, emission: the open scene has no
     # emissive material, its emission gradient is zero)
-    detail["10c_open"] = grad_case(
+    detail["10c_open"], _ = grad_case(
         "10c open_env pt", make_open_env_scene(device=dev),
         cfg("pt", pt_mis=True), ("albedo", "log_scale"), gpu)
-    detail["10c_cornell"] = grad_case(
+    detail["10c_cornell"], _ = grad_case(
         "10c cornell pt", box, cfg("pt", pt_mis=True),
         ("albedo", "emission"), gpu)
     for k in ("10c_open", "10c_cornell"):
         check(detail[k]["k1"] > 0 and detail[k]["k2"] == 0,
               f"phase{k}: K1 / K2 launches")
-    # 10d: the example in-process, every hit through K1
+    # 10d: the example in-process, every hit through K1, each step one
+    # replay of its captured GradStep (the example's default on the card)
     from bidirectional_pathtracing_tpu_torch.ops import intersect_brute as ib
     zero_counts()
-    env = inverse_rendering.run_envlight(argparse.Namespace(
-        steps=150, lr=0.03, size=[40, 30], device=dev.type))
+    env = inverse_rendering.run_envlight(env_args(dev))
     k1_env = ib.brute_hit.launches
+    env_graph = grad_step_record(env, "graph", "phase10d envlight")
     zero_counts()
-    boxr = inverse_rendering.run_box(argparse.Namespace(
-        steps=10, lr=0.05, size=[W, H], device=dev.type),
-        assert_converged=False)
+    boxr = inverse_rendering.run_box(box_args(dev), assert_converged=False)
     k1_box = ib.brute_hit.launches
+    box_graph = grad_step_record(boxr, "graph", "phase10d box")
     check(k1_env > 0 and k1_box > 0, "phase10d: the example launched no K1")
     check(boxr["loss"][9] < boxr["loss"][0]
           and boxr["albedo_err"][10] < boxr["albedo_err"][1],
           f"phase10d box: loss {boxr['loss'][0]} -> {boxr['loss'][9]}, "
           f"error {boxr['albedo_err'][1]} -> {boxr['albedo_err'][10]}")
     detail["10d"] = {
-        "envlight": {"steps": 150, "size": [40, 30],
+        "envlight": {"steps": ENV_STEPS, "size": [40, 30],
                      "albedo_err": [env["albedo_err"][0],
                                     env["albedo_err"][-1]],
                      "log_scale_err": [env["log_scale_err"][0],
                                        env["log_scale_err"][-1]],
                      "seconds_per_step": env["seconds_per_step"],
-                     "k1": k1_env},
-        "box": {"steps": 10, "size": [W, H],
+                     "k1": k1_env, "graph": env_graph},
+        "box": {"steps": BOX_STEPS, "size": [W, H],
                 "loss": [boxr["loss"][0], boxr["loss"][9]],
                 "albedo_err": [boxr["albedo_err"][1],
                                boxr["albedo_err"][10]],
-                "seconds_per_step": boxr["seconds_per_step"], "k1": k1_box}}
+                "seconds_per_step": boxr["seconds_per_step"], "k1": k1_box,
+                "graph": box_graph}}
     print(f"[phase10d] {json.dumps(detail['10d'])} ({gpu})")
     launches = {"k1": {k: detail[k]["k1"] for k in
                        ("10a", "10c_open", "10c_cornell")},
                 "k2": {"10b": detail["10b"]["k2"]}}
-    return detail, launches
+    return detail, launches, grads, env
 
 
 # --- phase 11: the multi-process render -------------------------------------
@@ -2239,6 +2317,235 @@ def phase14_graph(dev, gpu, mesh, big):
     return detail
 
 
+# --- phase 15: the training step as one dispatch --------------------------
+
+
+def train_turn_record(turns, steps):
+    """Seconds a step of each turn of one example run (the graph's with
+    its capture), the median step after the first, and the graph turns'
+    records."""
+    import statistics
+    by_mode = {m: [t for t in turns if t[0] == m] for m in ("eager", "graph")}
+    return {
+        "steps": steps,
+        "seconds_per_step": {m: [h["seconds_per_step"] for _, h, _, _ in ts]
+                             for m, ts in by_mode.items()},
+        "steady_step_s": {m: [statistics.median(h["step_s"][1:])
+                              for _, h, _, _ in ts]
+                          for m, ts in by_mode.items()},
+        "first_step_s": {m: [h["step_s"][0] for _, h, _, _ in ts]
+                         for m, ts in by_mode.items()},
+        "graph": [r for _, _, _, r in by_mode["graph"]],
+        "launches": list(turns[0][2])}
+
+
+def print_train(label, rec, extra, gpu):
+    sps, steady = rec["seconds_per_step"], rec["steady_step_s"]
+    g = rec["graph"][-1]
+    print(f"[phase15] {label}: s/step eager "
+          + " / ".join(f"{x:.4f}" for x in sps["eager"]) + ", graph "
+          + " / ".join(f"{x:.4f}" for x in sps["graph"])
+          + " (capture included); steady eager "
+          + " / ".join(f"{x:.4f}" for x in steady["eager"]) + ", graph "
+          + " / ".join(f"{x:.4f}" for x in steady["graph"])
+          + f"; replay {g['replay_ms']:.3f} ms; capture_s "
+          f"{g['capture_s']:.3f}, nodes {g['nodes']}, pool "
+          f"{g['pool_bytes']} B; hit launches a step "
+          f"{g['launches_per_step']}; {extra} ({gpu})")
+
+
+def forward_replay_ms(scene, cfg, key):
+    """The forward alone, utils/gradcheck.py pass_loss under no_grad,
+    captured by step_graph.capture_cuda: (ms a replay, tools/
+    profile_pass.py replay_ms, its loss)."""
+    import torch
+    from bidirectional_pathtracing_tpu_torch.tools.profile_pass import (
+        replay_ms)
+    from bidirectional_pathtracing_tpu_torch.utils import gradcheck as gc
+    from bidirectional_pathtracing_tpu_torch.utils import step_graph
+    out = torch.zeros((), device=scene.device)
+
+    def body():
+        with torch.no_grad():
+            out.copy_(gc.pass_loss(scene, cfg, key))
+    cap = step_graph.capture_cuda(body, scene.device)
+    ms = replay_ms(cap, scene.device, TRAIN_REPLAYS)
+    cap.graph.reset()
+    torch.cuda.empty_cache()
+    return ms, out.item()
+
+
+def phase15_train(dev, gpu, mesh, grad10, grads10, env10):
+    """Phase 15: the training step as one dispatch (step_graph.GradStep),
+    each case eager (step_graph.disabled()), graph, eager, graph in this
+    process.  grad10, grads10: phase 10's detail and its 10a / 10b
+    gradients; env10: 10d's envlight history, the graph turn of 15b.
+    Returns a detail dict."""
+    import torch
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.core import rng
+    from bidirectional_pathtracing_tpu_torch.examples import (
+        inverse_rendering)
+    from bidirectional_pathtracing_tpu_torch.scene.procedural import (
+        make_cornell_box)
+    from bidirectional_pathtracing_tpu_torch.tools.profile_pass import (
+        replay_ms)
+    from bidirectional_pathtracing_tpu_torch.utils import gradcheck as gc
+    from bidirectional_pathtracing_tpu_torch.utils import step_graph
+
+    t_phase = time.perf_counter()
+    detail = {}
+    # 15a: the box mode at 480x360, BOX_STEPS steps, lr 0.05
+    turns = []
+    for mode in TRAIN_TURNS:
+        torch.cuda.synchronize()
+        zero_counts()
+        with (step_graph.disabled() if mode == "eager"
+              else contextlib.nullcontext()):
+            hist = inverse_rendering.run_box(box_args(dev),
+                                             assert_converged=False)
+        n = counts()
+        turns.append((mode, hist, n,
+                      grad_step_record(hist, mode, f"phase15a {mode}")))
+    ref_hist, ref_n = turns[0][1], turns[0][2]
+    check(ref_n[0] > 0 and ref_n[1:] == (0, 0),
+          f"phase15a: K1, K2, walk launches {ref_n}")
+    finals = [h["params"][0] for _, h, _, _ in turns]
+    spread = max(float((a - b).abs().max()) for a in finals for b in finals)
+    for mode, hist, n, _ in turns:
+        check(hist["loss"][0] == ref_hist["loss"][0],
+              f"phase15a: {mode} first loss {hist['loss'][0]!r} against "
+              f"eager {ref_hist['loss'][0]!r}")
+        check(n == ref_n, f"phase15a: {mode} launches {n} against {ref_n}")
+        last = BOX_STEPS - 1
+        check(hist["loss"][last] < hist["loss"][0]
+              and hist["albedo_err"][last + 1] < hist["albedo_err"][1],
+              f"phase15a {mode}: loss {hist['loss'][0]} -> "
+              f"{hist['loss'][last]}, error {hist['albedo_err'][1]} -> "
+              f"{hist['albedo_err'][last + 1]}")
+    check(spread <= TRAIN_PARAM_TOL,
+          f"phase15a: parameters after {BOX_STEPS} steps {spread} apart")
+    rec = train_turn_record(turns, BOX_STEPS)
+    rec.update(size=[W, H], first_loss=ref_hist["loss"][0],
+               loss=[ref_hist["loss"][0], ref_hist["loss"][-1]],
+               albedo_err=[ref_hist["albedo_err"][1],
+                           ref_hist["albedo_err"][-1]],
+               param_spread=spread, first_loss_bitwise=True)
+    detail["15a_box"] = rec
+    print_train(f"15a box {W}x{H} BDPT d3 {BOX_STEPS} steps", rec,
+                f"first loss bitwise, parameters {spread:.3e} apart", gpu)
+    del turns, finals
+
+    # 15b: the envlight mode eager; 10d's run is its graph turn
+    torch.cuda.synchronize()
+    zero_counts()
+    with step_graph.disabled():
+        env_e = inverse_rendering.run_envlight(env_args(dev))
+    n_e = counts()
+    rec_e = grad_step_record(env_e, "eager", "phase15b")
+    g10 = grad10["10d"]["envlight"]
+    diffs = {k: abs(env_e[k][-1] - env10[k][-1])
+             for k in ("albedo_err", "log_scale_err")}
+    check(all(d <= TRAIN_ENV_TOL for d in diffs.values()),
+          f"phase15b: final errors eager against graph {diffs}")
+    check(env_e["loss"][0] == env10["loss"][0],
+          f"phase15b: first loss {env_e['loss'][0]!r} against the graph's "
+          f"{env10['loss'][0]!r}")
+    check(n_e == (g10["k1"], 0, 0),
+          f"phase15b: launches {n_e} against the graph's {g10['k1']}")
+    detail["15b_envlight"] = {
+        "steps": ENV_STEPS, "size": [40, 30], "eager": rec_e,
+        "graph": g10["graph"], "final_err_diff": diffs,
+        "seconds_per_step": {"eager": [env_e["seconds_per_step"]],
+                             "graph": [env10["seconds_per_step"]]},
+        "steady_step_s": {
+            m: [float(np.median(h["step_s"][1:]))]
+            for m, h in (("eager", env_e), ("graph", env10))},
+        "albedo_err": {"eager": env_e["albedo_err"][-1],
+                       "graph": env10["albedo_err"][-1]},
+        "log_scale_err": {"eager": env_e["log_scale_err"][-1],
+                          "graph": env10["log_scale_err"][-1]},
+        "launches": list(n_e)}
+    print_train(f"15b envlight 40x30 PT d3 {ENV_STEPS} steps",
+                {**detail["15b_envlight"], "graph": [g10["graph"]]},
+                f"final errors eager against graph {diffs}", gpu)
+    del env_e
+
+    # 15c: pass_loss's value and gradient, one 480x360 d5 BDPT pass at
+    # key 0, no update, against phase 10's eager gradients
+    key = torch.tensor(rng.key(0).tolist(), device=dev)   # [2] int64
+    cfg = RenderConfig(spp=1, max_ray_depth=DEPTH, width=W, height=H,
+                       integrator="bdpt", seed=0)
+    names = ("albedo", "radiance")
+    box = make_cornell_box(W, H, sphere_materials=("mirror", "glass"),
+                           device=dev)
+    area = BDPT_PER_PASS["area"]
+    for label, scene, ref, want in (
+            ("cornell", box, "10a", (area, 0, 0)),
+            (f"meshbox_L{MESH_LEVEL}", mesh, "10b", (0, area, 0))):
+        tol = GRAD_PLAIN_REL["brute_hit" if want[0] else "clustered_hit"]
+        ref_loss, ref_g = grad10[ref]["loss"], grads10[ref]
+        step, turns = None, []
+        for mode in TRAIN_TURNS:
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            if mode == "eager":
+                with step_graph.disabled():
+                    loss, g = gc.grad_step(scene, cfg, names).run(key)
+            else:
+                step = step or gc.grad_step(scene, cfg, names)
+                loss, g = step.run(key)
+            loss = loss.item()
+            secs = time.perf_counter() - t0
+            n = counts()
+            rel = {name: float((gi - ref_g[name]).abs().max())
+                   / float(ref_g[name].abs().max())
+                   for name, gi in zip(names, g)}
+            check(loss == ref_loss, f"phase15c {label} {mode}: loss "
+                  f"{loss!r} against phase 10's {ref_loss!r}")
+            check(all(r <= tol for r in rel.values()),
+                  f"phase15c {label} {mode}: gradients {rel} of max|g| "
+                  f"from phase {ref}'s, tolerance {tol}")
+            check(n == want, f"phase15c {label} {mode}: launches {n}, "
+                  f"want {want}")
+            turns.append({"mode": mode, "step_s": secs,
+                          "rel_of_max_grad": rel})
+        check(step.launches == dict(zip(("brute_hit", "clustered_hit",
+                                         "bvh_walk"), want)),
+              f"phase15c {label}: graph launches {step.launches}")
+        rec = {"turns": turns, "capture_s": step.capture_s,
+               "nodes": step.nodes, "pool_bytes": step.pool_bytes,
+               "launches_per_step": dict(step.launches),
+               "replay_ms": replay_ms(step, dev, TRAIN_REPLAYS),
+               "tolerance": tol,
+               "eager_forward_s": grad10[ref]["forward_s"],
+               "eager_backward_s": grad10[ref]["backward_s"]}
+        step.release()
+        rec["forward_replay_ms"], f_loss = forward_replay_ms(scene, cfg, key)
+        check(f_loss == ref_loss, f"phase15c {label}: forward graph loss "
+              f"{f_loss!r} against {ref_loss!r}")
+        rec["backward_ms"] = rec["replay_ms"] - rec["forward_replay_ms"]
+        detail[f"15c_{label}"] = rec
+        secs = {m: [t["step_s"] for t in turns if t["mode"] == m]
+                for m in ("eager", "graph")}
+        worst = max(max(t["rel_of_max_grad"].values()) for t in turns)
+        print(f"[phase15] 15c {label} {W}x{H} d{DEPTH} value and gradient: s "
+              f"eager {secs['eager'][0]:.4f} / {secs['eager'][1]:.4f}, "
+              f"graph {secs['graph'][0]:.4f} (capture included) / "
+              f"{secs['graph'][1]:.4f}; replay {rec['replay_ms']:.3f} ms, "
+              f"forward alone {rec['forward_replay_ms']:.3f} ms, backward "
+              f"{rec['backward_ms']:.3f} ms; capture_s "
+              f"{rec['capture_s']:.3f}, nodes {rec['nodes']}, pool "
+              f"{rec['pool_bytes']} B; launches {rec['launches_per_step']};"
+              f" gradients within {worst:.3e} of max|g|, loss bitwise "
+              f"({gpu})")
+    del box
+    detail["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase15] {detail['seconds']:.1f} s")
+    return detail
+
+
 def main() -> int:
     import torch
 
@@ -2460,13 +2767,15 @@ def main() -> int:
     env = phase7_env(dev, gpu, mesh)
     pt, pt_timed = phase8_pt(dev, gpu, mesh)
     cli, cli_launches = phase9_cli(gpu)
-    grad, grad_launches = phase10_grad(dev, gpu, mesh)
+    grad, grad_launches, grads10, env10 = phase10_grad(dev, gpu, mesh)
     mp, mp_launches = phase11_multiprocess(dev, gpu, mesh)
     big = load_big(dev)
     bvh12, walk_times, walk_launches, walk_err = phase12_bvh(dev, gpu, big)
     tools13, tool_launches = phase13_tools(dev, gpu)
     graph14 = phase14_graph(dev, gpu, mesh, big[0])
-    del big, mesh
+    del big
+    train15 = phase15_train(dev, gpu, mesh, grad, grads10, env10)
+    del mesh, grads10, env10
 
     # Every kernel: ms is device_ms, the kernel's own time on the device
     # (utils/timing.py; device_source says whether from the profiler or a
@@ -2504,6 +2813,14 @@ def main() -> int:
         "pt_launches_per_pass": pt_timed["cornell"]["launches_per_pass"],
         "cli_launches": {"9d_golden": cli_launches["9d_golden"][0]},
         "grad_launches": grad_launches["k1"],
+        "train_launches": {
+            "15a_box_step":
+                train15["15a_box"]["graph"][0]["launches_per_step"][
+                    "brute_hit"],
+            "15b_envlight_step": grad["10d"]["envlight"]["graph"][
+                "launches_per_step"]["brute_hit"],
+            "15c_cornell": train15["15c_cornell"]["launches_per_step"][
+                "brute_hit"]},
         "mp_launches": mp_launches["brute_hit"],
         "bench_launches": tool_launches["brute_hit"]["bench"],
         "flagship_launches": tool_launches["brute_hit"]["flagship"],
@@ -2544,6 +2861,10 @@ def main() -> int:
         "cli_launches": {k: cli_launches[k][1]
                          for k in ("9a_bdpt", "9b_env", "9c_pt")},
         "grad_launches": grad_launches["k2"],
+        "train_launches": {
+            f"15c_meshbox_L{MESH_LEVEL}":
+                train15[f"15c_meshbox_L{MESH_LEVEL}"]["launches_per_step"][
+                    "clustered_hit"]},
         "mp_launches": mp_launches["clustered_hit"],
         "bench_launches": tool_launches["clustered_hit"]["bench"],
         "flagship_launches": tool_launches["clustered_hit"]["flagship"],
@@ -2570,7 +2891,7 @@ def main() -> int:
                   "wall_s": st8s["wall_time_s"], "vs_default_rel": rel_5s},
               "k3": k3["detail"], "env": env, "pt": pt, "cli": cli,
               "grad": grad, "mp": mp, "bvh": bvh12, "tools": tools13,
-              "graph": graph14}
+              "graph": graph14, "train": train15}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     os.makedirs(os.path.dirname(KERNEL_CHECK), exist_ok=True)
@@ -2579,7 +2900,7 @@ def main() -> int:
                    "kernels": kernels["kernels"],
                    "gates": {"phase10": grad, "phase11": mp,
                              "phase12": bvh12, "phase13": tools13,
-                             "phase14": graph14}},
+                             "phase14": graph14, "phase15": train15}},
                   f, indent=1)
     total_s = time.perf_counter() - t_script
     detail["total_s"] = total_s

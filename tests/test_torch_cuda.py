@@ -13,7 +13,9 @@ inverse-rendering example at its defaults, and a two-process render
 (parallel/launch.py) on one card; the BVH walk kernel, the viewer and the
 visualizer; the measurement tools' bench and flagship rows; and the
 captured pass (utils/step_graph.py) bitwise the eager pass, in render(),
-in the ranks' passes and replayed after another scene's render.
+in the ranks' passes and replayed after another scene's render; and the
+captured training step (step_graph.GradStep) against the eager step, and
+replayed after another scene's capture.
 
 Jax-free, so it runs where the card is (that machine has no jax; the
 repo's conftest imports it, so pass --noconftest):
@@ -1132,3 +1134,115 @@ def test_cached_pass_outlives_the_next_scenes_tables(cuda, route,
     assert ref.combined.mean() > 0
     del junk
     step_graph.clear()
+
+
+def _box_loss(w, h, device):
+    """The example's box problem at w x h: (loss_fn(albedo, key, target),
+    guess, keys [4, 2], targets [4, w*h, 3])."""
+    from bidirectional_pathtracing_tpu_torch.examples import (
+        inverse_rendering as ir)
+    render_once, scene = ir.box_problem(w, h, device)
+    keys = ir.target_keys(123, device)
+    with torch.no_grad():
+        targets = torch.stack([render_once(scene.materials.albedo, k)
+                               for k in keys])
+    a = scene.materials.albedo
+    guess = torch.clamp(a + 0.35 * torch.sin(torch.arange(
+        a.numel(), dtype=torch.float32, device=device)).reshape(a.shape),
+        0.05, 0.95)
+
+    def loss_fn(albedo, key, target):
+        return torch.mean((render_once(albedo, key) - target) ** 2)
+    return render_once, loss_fn, guess, keys, targets
+
+
+def test_graphed_box_step_is_the_eager_step(cuda):
+    """The example's box step at 48x36 through one CUDA graph against the
+    same step eager under step_graph.disabled(): the first loss bitwise,
+    the K1 launches of a step equal, the parameters after 3 steps within
+    1e-4; the bare value-and-grad's gradients within 1e-4 of max|g|.
+    chip_smoke.py phase 15 read both spreads as 0.0 at 480x360 on an
+    NVIDIA H100 80GB HBM3 at 700 W (the backward of the lever gathers is
+    a sorted, deterministic scatter there); the 1e-4 leaves room for a
+    backward whose sums depend on arrival order."""
+    from bidirectional_pathtracing_tpu_torch.examples import (
+        inverse_rendering as ir)
+    from bidirectional_pathtracing_tpu_torch.utils import step_graph
+    render_once, loss_fn, guess, keys, targets = _box_loss(48, 36, cuda)
+    runs = {}
+    for mode in ("eager", "graph"):
+        params = (guess.clone().requires_grad_(True),)
+        if mode == "eager":
+            with step_graph.disabled():
+                step = ir.train_step(render_once, params, keys[0],
+                                     targets[0], 0.05)
+        else:
+            step = ir.train_step(render_once, params, keys[0], targets[0],
+                                 0.05)
+        assert step.route == mode
+        before = step_graph.launch_counts()
+        losses = [step.run(keys[i], targets[i]) for i in range(3)]
+        runs[mode] = (losses, params[0].detach().clone(),
+                      step_graph.launches_since(before))
+        if mode == "graph":
+            assert step.nodes > 0 and step.pool_bytes > 0
+            assert step.launches["brute_hit"] * 3 == runs[mode][2][
+                "brute_hit"] > 0
+        step.release()
+    (le, pe, ne), (lg, pg, ng) = runs["eager"], runs["graph"]
+    assert torch.equal(le[0], lg[0]) and ne == ng
+    assert float((pe - pg).abs().max()) <= 1e-4
+    assert not torch.equal(pg, guess)
+    grads = {}
+    for mode in ("eager", "graph"):
+        albedo = (guess.clone().requires_grad_(True),)
+        if mode == "eager":
+            with step_graph.disabled():
+                step = step_graph.GradStep(loss_fn, albedo,
+                                           (keys[0], targets[0]))
+        else:
+            step = step_graph.GradStep(loss_fn, albedo, (keys[0], targets[0]))
+        grads[mode] = [step.run(keys[i], targets[i]) for i in (1, 2)]
+        step.release()
+    for (l_e, (g_e,)), (l_g, (g_g,)) in zip(grads["eager"], grads["graph"]):
+        scale = float(g_e.abs().max())
+        assert torch.equal(l_e, l_g) and scale > 0
+        assert float((g_e - g_g).abs().max()) <= 1e-4 * scale
+
+
+def test_grad_step_outlives_the_next_scenes_tables(cuda):
+    """K1's tables above its parameter cap are built outside the graph's
+    pool and cached for the last scene only (ops/_memo.py).  A GradStep of
+    scene A is captured, then one of scene B; A's tables are dropped from
+    the cache and fresh tensors of their sizes are made; A's step replays
+    and its loss and gradients are still those of its eager step."""
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.core import rng
+    from bidirectional_pathtracing_tpu_torch.utils import gradcheck as gc
+    from bidirectional_pathtracing_tpu_torch.utils import step_graph
+    cap = ib.param_caps()[0]
+    scenes = [_soup(cuda, n_tris=cap + 1000, seed=8),
+              _soup(cuda, n_tris=cap + 2000, seed=9)]
+    cfg = RenderConfig(spp=1, max_ray_depth=4, width=64, height=48)
+    names = ("albedo", "radiance")
+    key = torch.tensor(rng.key(0).tolist(), device=cuda)   # [2] int64
+    with step_graph.disabled():
+        eager = [gc.grad_step(s, cfg, names).run(key) for s in scenes]
+    steps = [gc.grad_step(s, cfg, names) for s in scenes]
+    assert all(s.route == "graph" for s in steps)
+    got = [steps[0].run(key)]
+    a_tables = ib._tables.last[2]
+    got.append(steps[1].run(key))
+    assert ib._tables.last[2] is not a_tables
+    assert any(t is a_tables for t in steps[0].tables)
+    junk = _scribble(a_tables)
+    del a_tables
+    got.append(steps[0].run(key))
+    for (loss, grads), (r_loss, r_grads) in zip(got, [*eager, eager[0]]):
+        assert torch.equal(loss, r_loss)
+        for g, r in zip(grads, r_grads):
+            scale = float(r.abs().max())
+            assert scale > 0 and float((g - r).abs().max()) <= 1e-4 * scale
+    del junk
+    for s in steps:
+        s.release()

@@ -84,3 +84,22 @@ def test_probe_covers_the_measurement_tools():
     for mod in ("bench", "flagship_render", "scaling_bench",
                 "cluster_build_ab"):
         assert f"{PKG}.tools.{mod}" in names, mod
+
+
+def test_training_step_imports_without_jax_or_optax():
+    """The captured training step (utils/step_graph.py GradStep), the
+    example that drives it and its optax.adam update on tensors import
+    where neither jax nor optax can: the card's machine has neither."""
+    probe = (
+        "import sys\n"
+        "sys.modules['jax'] = sys.modules['optax'] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        f"from {PKG}.utils.step_graph import GradStep, grad_route\n"
+        f"from {PKG}.utils.gradcheck import grad_step\n"
+        f"from {PKG}.examples.inverse_rendering import (\n"
+        "    adam_init, adam_update, train_step)\n"
+        "print('ok')\n")
+    p = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, cwd=REPO, timeout=300)
+    assert p.returncode == 0 and p.stdout.split()[-1] == "ok", \
+        p.stderr[-2000:]

@@ -227,11 +227,13 @@ def test_pt_chunk_is_passes_one_by_one():
 # --- no op in the captured body waits for the host ---------------------------
 
 # ops that wait for the device on the card: an upload from host data
-# (torch.tensor), an item, a nonzero and what calls it
+# (torch.tensor), an item, a nonzero and what calls it: a boolean index,
+# read (index) or written (index_put, the backward of a boolean read)
 _SYNCS = {"aten.lift_fresh.default", "aten._local_scalar_dense.default",
           "aten.nonzero.default", "aten.masked_select.default",
           "aten.unique.default", "aten._unique2.default",
           "aten.repeat_interleave.Tensor"}
+_INDEXED = ("aten.index.Tensor", "aten.index_put", "aten._index_put_impl_")
 
 
 class _SyncSpy(TorchDispatchMode):
@@ -241,7 +243,7 @@ class _SyncSpy(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         name = str(func)
-        boolean_index = name.startswith("aten.index.Tensor") and any(
+        boolean_index = name.startswith(_INDEXED) and any(
             i is not None and i.dtype == torch.bool for i in args[1])
         if name in _SYNCS or boolean_index:
             self.found[name] += 1
