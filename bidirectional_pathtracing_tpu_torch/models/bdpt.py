@@ -51,6 +51,7 @@ from bidirectional_pathtracing_tpu_torch.ops import lights as light_ops
 from bidirectional_pathtracing_tpu_torch.ops.intersect import (
     DISPATCH, Intersector, _window, scene_occluded_segment)
 from bidirectional_pathtracing_tpu_torch.scene.types import Scene
+from bidirectional_pathtracing_tpu_torch.utils import tracing
 
 
 class Subpath(NamedTuple):
@@ -767,9 +768,13 @@ def sample_pass(scene: Scene, key, width: int, height: int, pixel_ids,
     intersection queries a per-ray tracer would issue (the reference's
     total_rays, bvh.h:136), as an int64 tensor.
     isect: the closest-hit / any-hit pair to go through (ops/intersect.py).
+    The pass marks (utils/tracing.py mark) its start and the ends of its
+    subpath walks (eye, light and env emission), its connections and its
+    splat scatter.
     """
     s = pixel_ids.shape[0]
     dev = pixel_ids.device
+    tracing.mark(tracing.PASS, 0, dev)
     nv = cfg.max_ray_depth + 1           # real vertices per subpath
     nl_lights = light_ops.num_lights(scene.lights)
     if inv_ns_aa is None:
@@ -827,15 +832,21 @@ def sample_pass(scene: Scene, key, width: int, height: int, pixel_ids,
     # env families run on their own (the env is not in the area-light
     # pick): env paths and area-light paths are disjoint supports, so the
     # (s,t) families keep their own MIS untouched.
+    # The emission subpaths come first, with the walks; both families are
+    # pure functions of the keys, so the order changes no bit.
     env_rays = torch.zeros((), dtype=torch.int64, device=dev)
-    if scene.envmap is not None and nv >= 2:
+    env = scene.envmap is not None and nv >= 2
+    if env:
         ctr, rad_b = _scene_bounds(scene)
         pdf_pos = 1.0 / (PI * rad_b * rad_b)
-        eye_L, env_rays = _env_eye_families(scene, eye, eye_steps, keys, nv,
-                                            pdf_pos, isect=isect)
-        env_rays = env_rays + _env_subpath_splats(
+        sub_rays = _env_subpath_splats(
             scene, keys, width, height, nv, ctr, rad_b, pdf_pos, splats,
             inv_ns_aa, isect=isect)
+    tracing.mark(tracing.PASS, 1, dev)
+    if env:
+        eye_L, env_rays = _env_eye_families(scene, eye, eye_steps, keys, nv,
+                                            pdf_pos, isect=isect)
+        env_rays = env_rays + sub_rays
 
     # --- connections: i_eye in 1..nv, i_light in 0..nv --------------------
     combos = [(i_e, i_l) for i_e in range(1, nv + 1)
@@ -885,11 +896,13 @@ def sample_pass(scene: Scene, key, width: int, height: int, pixel_ids,
                                                  ill * inv_ns_aa, 0.0)))
         else:
             eye_L = eye_L + ill
+    tracing.mark(tracing.PASS, 2, dev)
     light_img = torch.zeros((height * width, 3), device=dev)
     if splats:
         # one scatter a pass, in the order the splats were made
         _splat(light_img, torch.cat([f for f, _ in splats]),
                torch.cat([v for _, v in splats]))
+    tracing.mark(tracing.PASS, 3, dev)
     if not return_stats:
         return eye_L, light_img
 

@@ -49,7 +49,7 @@ from bidirectional_pathtracing_tpu_torch.core import rng
 from bidirectional_pathtracing_tpu_torch.ops.intersect import (
     DISPATCH, Intersector)
 from bidirectional_pathtracing_tpu_torch.scene.types import Scene
-from bidirectional_pathtracing_tpu_torch.utils import step_graph
+from bidirectional_pathtracing_tpu_torch.utils import step_graph, tracing
 
 
 @dataclasses.dataclass
@@ -131,6 +131,7 @@ def _pt_step_chunk(scene: Scene, key, base: int, cfg: RenderConfig,
     return out["acc"], out["s1"], out["s2"], out["rays"]
 
 
+@tracing.spanned("render")
 def render(scene: Scene, cfg: RenderConfig, seed: Optional[int] = None,
            checkpoint_path: Optional[str] = None,
            checkpoint_every: int = 0,
@@ -155,6 +156,9 @@ def render(scene: Scene, cfg: RenderConfig, seed: Optional[int] = None,
     dispatches by device (the CUDA kernels on the card, the plain torch
     versions on the CPU), ops/intersect.py PLAIN forces the plain version.
     The scene's envmap, if any, lights it.
+
+    Under the profiler (utils/tracing.py) the call is a "render" unit and
+    each copy of the sums to the host a "render.readback" span.
     """
     from bidirectional_pathtracing_tpu_torch.ops import lights as light_ops
     from bidirectional_pathtracing_tpu_torch.utils import checkpoint as ckpt
@@ -211,8 +215,12 @@ def render(scene: Scene, cfg: RenderConfig, seed: Optional[int] = None,
         passes = i
         # the buffers accumulate 1/spp per pass; renormalise an early stop
         scale = cfg.spp / max(passes, 1)
-        eye_np = eye.cpu().numpy().reshape(h, w, 3) * scale   # waits
-        light_np = light.cpu().numpy().reshape(h, w, 3) * scale
+        with tracing.span("render.readback"):
+            eye_np = eye.cpu().numpy()          # waits for the passes
+        with tracing.span("render.readback"):
+            light_np = light.cpu().numpy()
+        eye_np = eye_np.reshape(h, w, 3) * scale
+        light_np = light_np.reshape(h, w, 3) * scale
         combined = eye_np + light_np
         counts = np.full((h, w), passes, np.int32)
     else:
@@ -249,12 +257,14 @@ def render(scene: Scene, cfg: RenderConfig, seed: Optional[int] = None,
                 active = active & ~converged
                 if not bool(active.any()):     # the batch's one host sync
                     break
-        counts_cell = counts_dev.cpu().numpy()
+        with tracing.span("render.readback"):
+            counts_cell = counts_dev.cpu().numpy()      # waits
+        with tracing.span("render.readback"):
+            acc_np = acc.cpu().numpy()
         counts_np = np.zeros((h * w,), np.int32)
         counts_np[pix_np] = counts_cell
         full = np.zeros((h * w, 3))
-        full[pix_np] = (acc.cpu().numpy()
-                        / np.maximum(counts_cell, 1)[:, None])
+        full[pix_np] = acc_np / np.maximum(counts_cell, 1)[:, None]
         combined = full.reshape(h, w, 3)
         counts = counts_np.reshape(h, w)
 

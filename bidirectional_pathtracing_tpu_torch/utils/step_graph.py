@@ -38,6 +38,7 @@ once into a CUDA graph and replayed for every pass of a chunk:
     during the capture are the pass's launches, added again on each
     replay; the counts as they were before the warm-up are restored after
     the capture.  So every count means what it means for the eager pass.
+    Each capture adds one to utils/tracing.py COUNTS[CAPTURES].
   - The cache holds at most CACHE_SIZE captured passes, keyed on the scene
     object and the static arguments, as the JAX package keys
     static_argnames; the config enters as static_cfg(cfg), without the
@@ -72,7 +73,13 @@ applies an update that the capture only records, so the parameters and
 the update's state are restored after the capture: the first replay is
 the first step.  It holds the tables its capture read and counts the
 capture's hit launches on each replay, as a Pass does; grad_route() runs
-it eagerly on the CPU and under disabled().
+it eagerly on the CPU and under disabled().  A step marks its start and
+the ends of its loss, its gradient and its update on the device's step
+ring (utils/tracing.py mark).
+
+Under the profiler (utils/tracing.py) each replay of a Pass or GradStep
+is a "step_graph.launch" span and each GradStep.run a "grad_step.run"
+unit.
 """
 
 from __future__ import annotations
@@ -96,6 +103,7 @@ from bidirectional_pathtracing_tpu_torch.ops import (
 from bidirectional_pathtracing_tpu_torch.ops.intersect import (
     DISPATCH, Intersector)
 from bidirectional_pathtracing_tpu_torch.scene.types import Scene
+from bidirectional_pathtracing_tpu_torch.utils import tracing
 
 CACHE_SIZE = 2        # captured passes kept (each with its own pool)
 WARMUP_PASSES = 1     # eager passes on a side stream before a capture
@@ -240,8 +248,9 @@ class Pass:
     def replay(self):
         if self._replay is None:
             raise RuntimeError("this pass was evicted and released")
-        self._replay()
-        _add_counts(self.launches)
+        with tracing.span("step_graph.launch"):
+            self._replay()
+            _add_counts(self.launches)
 
     def run(self, keys, pix, start: Optional[dict] = None, active=None,
             inv_spp: float = 1.0,
@@ -335,8 +344,10 @@ def _count_nodes(graph) -> int:
 
 def capture_cuda(body: Callable[[], None], device) -> Captured:
     """WARMUP_PASSES calls of body on a side stream, then one captured into
-    a CUDA graph and instantiated."""
+    a CUDA graph and instantiated.  The device's mark rings
+    (utils/tracing.py ring) are made before the warm-up."""
     t0 = time.perf_counter()
+    tracing.ring(device)
     with torch.cuda.device(device):
         cur = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
@@ -412,6 +423,7 @@ def graphed_pass(scene: Scene, cfg: RenderConfig, width: int, height: int,
             cap = (capture or capture_cuda)(body, pix.device)
     finally:
         _set_counts(counts)
+    tracing.count(tracing.CAPTURES)
     p = Pass(b, cap.replay, cap.launches, cap.graph, scene, versions,
              cap.capture_s, cap.pool_bytes, cap.nodes,
              tuple(tables.values()))
@@ -461,15 +473,20 @@ class GradStep:
         self.capture_s = self.pool_bytes = self.nodes = None
 
     def _body(self):
+        dev = self.loss.device
+        tracing.mark(tracing.STEP, 0, dev)
         with torch.enable_grad():
             loss = self.loss_fn(*self.params, *self.inputs)
+            tracing.mark(tracing.STEP, 1, dev)
             grads = torch.autograd.grad(loss, self.params)
+        tracing.mark(tracing.STEP, 2, dev)
         with torch.no_grad():
             self.loss.copy_(loss)
             for buf, g in zip(self.grads, grads):
                 buf.copy_(g)
             if self.update is not None:
                 self.update(grads)
+        tracing.mark(tracing.STEP, 3, dev)
 
     def _capture(self):
         written = self.params + self.state
@@ -484,6 +501,7 @@ class GradStep:
             with torch.no_grad():   # undo the warm-up step's update
                 for t, s in zip(written, saved):
                     t.copy_(s)
+        tracing.count(tracing.CAPTURES)
         self._replay, self.launches, self.graph = (cap.replay, cap.launches,
                                                    cap.graph)
         self.capture_s, self.pool_bytes, self.nodes = (
@@ -497,9 +515,11 @@ class GradStep:
             if self.route != "graph":
                 raise RuntimeError("this step was released")
             self._capture()
-        self._replay()
-        _add_counts(self.launches)
+        with tracing.span("step_graph.launch"):
+            self._replay()
+            _add_counts(self.launches)
 
+    @tracing.spanned("grad_step.run")
     def run(self, *inputs):
         """One step on these inputs: the loss as a 0-d device tensor, and
         with no update (loss, gradients), copies of the step's buffers."""

@@ -56,6 +56,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from bidirectional_pathtracing_tpu_torch.utils import tracing
+
 RENDER_MODE = "RENDER"
 VISUALIZE_MODE = "VISUALIZE"
 EDIT_MODE = "EDIT"
@@ -106,12 +108,15 @@ class Viewer:
         cell = self.cfg.cell if self.render_cell else None
         return dataclasses.replace(self.cfg, spp=1, cell=cell)
 
+    @tracing.spanned("viewer.tick")
     def tick(self):
         """Render one progressive pass and fold it into the running mean.
         On the card the pass is a replay of the captured pass
         (utils/step_graph.py), captured on the first tick in
         "thread_local" mode: the HTTP threads' CUDA calls (frame_png,
-        key_press) cannot break the capture."""
+        key_press) cannot break the capture.  Under the profiler
+        (utils/tracing.py) a tick is a "viewer.tick" unit and its copies
+        to the host a "viewer.readback" span."""
         if self.mode != RENDER_MODE or self.passes >= self.cfg.spp:
             return False
         from bidirectional_pathtracing_tpu_torch.core import rng
@@ -126,8 +131,9 @@ class Viewer:
             zero = torch.zeros((h * w, 3), device=dev)
             eye_i, light_i, _rays = _bdpt_step_chunk(
                 self.scene, key, self.passes, cfg1, w, h, pix, 1, zero, zero)
-            eye_i = eye_i.cpu().numpy()
-            light_i = light_i.cpu().numpy()
+            with tracing.span("viewer.readback"):
+                eye_i = eye_i.cpu().numpy()
+                light_i = light_i.cpu().numpy()
             with self._lock:
                 if self._eye_sum is None:
                     self._eye_sum = np.zeros((h * w, 3))
@@ -140,8 +146,10 @@ class Viewer:
         else:
             active = torch.ones(pix.shape, dtype=torch.bool, device=dev)
             L = _pt_step_chunk(self.scene, key, self.passes, cfg1, w, h, pix,
-                               1, active)[0].cpu().numpy()
-            pix = pix.cpu().numpy()
+                               1, active)[0]
+            with tracing.span("viewer.readback"):
+                L = L.cpu().numpy()
+                pix = pix.cpu().numpy()
             with self._lock:
                 if self._eye_sum is None:
                     self._eye_sum = np.zeros((h * w, 3))
