@@ -46,6 +46,7 @@ from bidirectional_pathtracing_tpu_torch.core.math import (
 from bidirectional_pathtracing_tpu_torch.core import rng
 from bidirectional_pathtracing_tpu_torch.ops import bsdf as bsdf_ops
 from bidirectional_pathtracing_tpu_torch.ops import camera_ops
+from bidirectional_pathtracing_tpu_torch.ops import connect as connect_ops
 from bidirectional_pathtracing_tpu_torch.ops import envlight
 from bidirectional_pathtracing_tpu_torch.ops import lights as light_ops
 from bidirectional_pathtracing_tpu_torch.ops.intersect import (
@@ -771,6 +772,10 @@ def sample_pass(scene: Scene, key, width: int, height: int, pixel_ids,
     The pass marks (utils/tracing.py mark) its start and the ends of its
     subpath walks (eye, light and env emission), its connections and its
     splat scatter.
+    The connections run as one kernel where ops/connect.py route says so
+    (on CUDA, nothing needing a gradient, subpaths within its depth cap),
+    else as the op chain below, each combo through _estimate_radiance and
+    _mis_weight.
     """
     s = pixel_ids.shape[0]
     dev = pixel_ids.device
@@ -863,6 +868,7 @@ def sample_pass(scene: Scene, key, width: int, height: int, pixel_ids,
 
     blocked_by_combo = {}
     pair_valid = {}
+    blk = None
     if seg_combos:
         a_all, b_all = [], []
         for (i_e, i_l) in seg_combos:
@@ -881,21 +887,29 @@ def sample_pass(scene: Scene, key, width: int, height: int, pixel_ids,
         blk = blk.reshape(len(seg_combos), s)
         blocked_by_combo = {c: blk[i] for i, c in enumerate(seg_combos)}
 
-    mis_tables = _mis_tables(scene, eye, light,
-                             consistent_camera=cfg.bdpt_consistent_camera)
-    for (i_eye, i_light) in combos:
-        ill, splat_xy, splat_mask = _estimate_radiance(
-            scene, i_eye, i_light, eye, light, keys, width, height, cfg,
-            blocked=blocked_by_combo.get((i_eye, i_light)),
-            tables=mis_tables, fresh=fresh)
-        if i_eye == 1:
-            if splat_xy is not None:
-                flat = splat_xy[:, 1] * width + splat_xy[:, 0]
-                flat = torch.clamp(flat, 0, height * width - 1).long()
-                splats.append((flat, torch.where(splat_mask[:, None],
-                                                 ill * inv_ns_aa, 0.0)))
-        else:
-            eye_L = eye_L + ill
+    if connect_ops.route(scene, nv, dev) == "kernel":
+        # the MIS tables and every combo in one kernel (ops/connect.py)
+        conn_splats = connect_ops.connect(scene, eye, light, fresh, blk,
+                                          eye_L, width, height, cfg,
+                                          inv_ns_aa)
+        if conn_splats is not None:
+            splats.append(conn_splats)
+    else:
+        mis_tables = _mis_tables(scene, eye, light,
+                                 consistent_camera=cfg.bdpt_consistent_camera)
+        for (i_eye, i_light) in combos:
+            ill, splat_xy, splat_mask = _estimate_radiance(
+                scene, i_eye, i_light, eye, light, keys, width, height, cfg,
+                blocked=blocked_by_combo.get((i_eye, i_light)),
+                tables=mis_tables, fresh=fresh)
+            if i_eye == 1:
+                if splat_xy is not None:
+                    flat = splat_xy[:, 1] * width + splat_xy[:, 0]
+                    flat = torch.clamp(flat, 0, height * width - 1).long()
+                    splats.append((flat, torch.where(splat_mask[:, None],
+                                                     ill * inv_ns_aa, 0.0)))
+            else:
+                eye_L = eye_L + ill
     tracing.mark(tracing.PASS, 2, dev)
     light_img = torch.zeros((height * width, 3), device=dev)
     if splats:

@@ -172,6 +172,23 @@ class Scene(NamedTuple):
         return self.geometry.tri_p.device
 
 
+def tensors(x):
+    """Every tensor of a (nested) NamedTuple such as a Scene."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, tuple):
+        for v in x:
+            yield from tensors(v)
+
+
+def needs_grad(scene: Scene) -> bool:
+    """Whether autograd records a pass over the scene: grad mode is on and
+    a scene tensor requires grad (utils/step_graph.py route, ops/connect.py
+    route)."""
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in tensors(scene))
+
+
 _PARTS = (("geometry", Geometry), ("materials", Materials),
           ("lights", Lights), ("camera", Camera))
 

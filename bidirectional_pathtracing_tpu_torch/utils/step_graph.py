@@ -32,13 +32,14 @@ once into a CUDA graph and replayed for every pass of a chunk:
     HTTP threads, viewer.py) cannot break it, then instantiation.
     capture_s times all three; pool_bytes is the device memory that the
     graph's private pool reserved; nodes is the graph's node count.
-  - Launch accounting: the hit-kernel wrappers count their launches in
+  - Launch accounting: the kernel wrappers count their launches in
     Python (brute_hit.launches, clustered_hit.launches,
-    bvh_walk.launches), which a replay does not run.  The counts added
-    during the capture are the pass's launches, added again on each
-    replay; the counts as they were before the warm-up are restored after
-    the capture.  So every count means what it means for the eager pass.
-    Each capture adds one to utils/tracing.py COUNTS[CAPTURES].
+    bvh_walk.launches, connect.launches), which a replay does not run.
+    The counts added during the capture are the pass's launches, added
+    again on each replay; the counts as they were before the warm-up are
+    restored after the capture.  So every count means what it means for
+    the eager pass.  Each capture adds one to utils/tracing.py
+    COUNTS[CAPTURES].
   - The cache holds at most CACHE_SIZE captured passes, keyed on the scene
     object and the static arguments, as the JAX package keys
     static_argnames; the config enters as static_cfg(cfg), without the
@@ -72,7 +73,7 @@ graph by capture_cuda and replayed for every step.  The warm-up step
 applies an update that the capture only records, so the parameters and
 the update's state are restored after the capture: the first replay is
 the first step.  It holds the tables its capture read and counts the
-capture's hit launches on each replay, as a Pass does; grad_route() runs
+capture's kernel launches on each replay, as a Pass does; grad_route() runs
 it eagerly on the CPU and under disabled().  A step marks its start and
 the ends of its loss, its gradient and its update on the device's step
 ring (utils/tracing.py mark).
@@ -99,19 +100,21 @@ from bidirectional_pathtracing_tpu_torch.core.math import const
 from bidirectional_pathtracing_tpu_torch.models import bdpt
 from bidirectional_pathtracing_tpu_torch.models import pathtracer as pt
 from bidirectional_pathtracing_tpu_torch.ops import (
-    _memo, intersect_brute, intersect_bvh, intersect_clustered)
+    _memo, connect, intersect_brute, intersect_bvh, intersect_clustered)
 from bidirectional_pathtracing_tpu_torch.ops.intersect import (
     DISPATCH, Intersector)
-from bidirectional_pathtracing_tpu_torch.scene.types import Scene
+from bidirectional_pathtracing_tpu_torch.scene.types import (
+    Scene, needs_grad, tensors)
 from bidirectional_pathtracing_tpu_torch.utils import tracing
 
 CACHE_SIZE = 2        # captured passes kept (each with its own pool)
 WARMUP_PASSES = 1     # eager passes on a side stream before a capture
 LUMINANCE = (0.2126, 0.7152, 0.0722)
-# the hit kernels' wrappers, each counting its launches in `.launches`
-HIT_KERNELS = {"brute_hit": intersect_brute.brute_hit,
-               "clustered_hit": intersect_clustered.clustered_hit,
-               "bvh_walk": intersect_bvh.bvh_walk}
+# the kernels' wrappers, each counting its launches in `.launches`
+KERNELS = {"brute_hit": intersect_brute.brute_hit,
+           "clustered_hit": intersect_clustered.clustered_hit,
+           "bvh_walk": intersect_bvh.bvh_walk,
+           "connect": connect.connect}
 
 _disabled = 0
 _cache: OrderedDict = OrderedDict()
@@ -129,21 +132,11 @@ def disabled():
         _disabled -= 1
 
 
-def _tensors(x):
-    """Every tensor of a (nested) NamedTuple such as a Scene."""
-    if isinstance(x, torch.Tensor):
-        yield x
-    elif isinstance(x, tuple):
-        for v in x:
-            yield from _tensors(v)
-
-
 def route(scene: Scene, pix, isect: Intersector = DISPATCH) -> str:
     """"graph" or "eager": how a chunk over the pixel ids pix runs."""
     if not pix.is_cuda or _disabled or isect is not DISPATCH:
         return "eager"
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in _tensors(scene)):
+    if needs_grad(scene):
         return "eager"
     return "graph"
 
@@ -151,22 +144,22 @@ def route(scene: Scene, pix, isect: Intersector = DISPATCH) -> str:
 # --- launch accounting -----------------------------------------------------
 
 def launch_counts() -> dict:
-    """Every hit kernel wrapper's launch count in this process."""
-    return {k: f.launches for k, f in HIT_KERNELS.items()}
+    """Every kernel wrapper's launch count in this process."""
+    return {k: f.launches for k, f in KERNELS.items()}
 
 
 def launches_since(before: dict) -> dict:
-    """Each hit kernel's launches since launch_counts() returned `before`."""
+    """Each kernel's launches since launch_counts() returned `before`."""
     return {k: v - before[k] for k, v in launch_counts().items()}
 
 
 def _set_counts(counts: dict):
-    for k, f in HIT_KERNELS.items():
+    for k, f in KERNELS.items():
         f.launches = counts[k]
 
 
 def _add_counts(delta: dict):
-    for k, f in HIT_KERNELS.items():
+    for k, f in KERNELS.items():
         f.launches += delta.get(k, 0)
 
 
@@ -321,7 +314,7 @@ def eager_pass(scene: Scene, cfg: RenderConfig, width: int, height: int,
 # --- capture ----------------------------------------------------------------
 
 class Captured(NamedTuple):
-    """What a capturer returns: the replay, the hit launches it makes,
+    """What a capturer returns: the replay, the kernel launches it makes,
     the graph and what the capture cost."""
 
     replay: Callable[[], None]
@@ -405,7 +398,7 @@ def graphed_pass(scene: Scene, cfg: RenderConfig, width: int, height: int,
     cfg = static_cfg(cfg)
     key = (id(scene), cfg, width, height, integrator,
            tuple(pix.shape), pix.dtype, str(pix.device), isect)
-    versions = tuple(t._version for t in _tensors(scene))
+    versions = tuple(t._version for t in tensors(scene))
     p = _cache.get(key)
     if p is not None and p.versions == versions:
         _cache.move_to_end(key)
@@ -461,7 +454,7 @@ class GradStep:
         self.params = tuple(params)
         self.inputs = tuple(torch.empty_like(x) for x in inputs)
         self.update = update
-        self.state = tuple(_tensors(state))
+        self.state = tuple(tensors(state))
         self.loss = torch.zeros((), device=self.params[0].device)
         self.grads = (() if update is not None else
                       tuple(torch.zeros_like(p) for p in self.params))

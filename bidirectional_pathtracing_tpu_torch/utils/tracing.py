@@ -10,7 +10,7 @@ spans with the profiler's trace:
         render(scene, cfg)
     tracing.spans()                  # render, its launches and readbacks
     tracing.device_phases(last=cfg.spp)   # ms of each pass's phases
-    step_graph.launch_counts(), tracing.COUNTS   # hit launches, captures
+    step_graph.launch_counts(), tracing.COUNTS   # launches, captures
 
   - Spans (span, spanned): a name, a start and an end on time.time_ns(),
     the clock that torch.profiler stamps its events on (a profiler event

@@ -9,10 +9,10 @@ a zero exit):
   0. environment: torch / CUDA versions and the card's name and power
      limit; a CUDA device is required.
   1. build the kernels (csrc/brute_hit.cu, csrc/clustered_hit.cu,
-     csrc/mt_bench.cu, csrc/bvh_walk.cu) from the sources in this
-     checkout, one nvcc each, started together, and print what ptxas
-     reports for each; build the native BVH builder (csrc/bvh_builder.cpp,
-     g++).
+     csrc/mt_bench.cu, csrc/bvh_walk.cu, csrc/connect.cu) from the
+     sources in this checkout, one nvcc each, started together, and print
+     what ptxas reports for each; build the native BVH builder
+     (csrc/bvh_builder.cpp, g++).
   2. the brute-force kernel K1 against its plain torch version on the card,
      closest hit (t and prim bitwise equal on every ray) and any hit, on
      the Cornell box (12 triangles, 2 spheres) and an 8,192-triangle soup
@@ -234,6 +234,15 @@ a zero exit):
      Each case prints its seconds a step for each turn (a graph turn's with
      its capture) and the steady step after the first, replay ms by CUDA
      events, capture_s, nodes, pool bytes and hit launches a step.
+ 16. the BDPT connections kernel (csrc/connect.cu) against the op chain
+     it replaces, on the benchmark's cbspheres and meshbox_458k scenes
+     (benchmark/configs/) at 480x360 d5 (phase16_connect): one eager pass
+     through each route on the same key, eye_L and the splat ids and
+     values within rtol 1e-5 / atol 1e-6 and the bitwise share of lanes
+     printed; the kernel timed alone on that pass's arguments; a render
+     of 4 passes through the captured pass with the kernel's launch count
+     zeroed before it (4 launches), and the same render through the op
+     chain, each pass's connections timed by the pass marks.
 
 Every earlier phase renders through the captured pass too, since it is
 render()'s default on the card.  Phases 12 and 14 share one load of the
@@ -280,7 +289,15 @@ sphere test per sphere tested; its bytes are the rays, its outputs (t,
 valid, n, mat, prim: 25 B a ray, or the any hit's 1 B) and the tree's and
 the geometry's tables, each read once.  It replaces no Pallas kernel:
 "replaces" names the JAX walk's lax.while_loop.  Its launches are those of
-phase 12d's render.
+phase 12d's render.  The connections kernel's line (connect, phase 16)
+has the cbspheres pass's times, the meshbox_458k pass's under
+meshbox_458k_*, and bitwise_share, the share of lanes equal to the op
+chain's; its plain_ms is the op chain's connections a pass in the
+captured render, its bound the bytes of its arguments (both subpaths,
+the fresh light samples, the blocked mask, eye_L read and written, the
+splats written: 1,056 B a lane at d5) over 3.35 TB/s, and its launches
+those of phase 16's cbspheres render.  It replaces no Pallas kernel:
+"replaces" names the JAX package's combo loop.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and before that one JSON line
@@ -291,6 +308,7 @@ and the gates of phases 10-15 go to artifacts/GPU_KERNEL_CHECK.json.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -319,7 +337,7 @@ GOLDEN_DAE = os.path.join(GOLDEN_DIR,
                           "dae_cbox_spheres_bdpt_48x36_d5_8spp_seed0.npz")
 DAE_LEVEL = 4                                  # icospheres of the 9a file
 KERNEL_CHECK = os.path.join(REPO, "artifacts", "GPU_KERNEL_CHECK.json")
-KERNELS = ("brute_hit", "clustered_hit", "mt_bench", "bvh_walk")
+KERNELS = ("brute_hit", "clustered_hit", "mt_bench", "bvh_walk", "connect")
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 flop/s (no tensor
 # cores), dense TF32 tensor-core flop/s; the per-test operation counts of
 # the bounds
@@ -2027,6 +2045,7 @@ def phase13_tools(dev, gpu):
 
     import torch
     from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.ops.connect import MAX_VERTICES
     from bidirectional_pathtracing_tpu_torch.parallel.render import (
         render_frame_sharded)
     from bidirectional_pathtracing_tpu_torch.scene.build import load_scene
@@ -2069,14 +2088,16 @@ def phase13_tools(dev, gpu):
         for name, (depth, spp, chunk) in BENCH_ROWS.items():
             r = rows[name]
             per = 2 * depth + 1
+            fused = depth + 1 <= MAX_VERTICES     # the connections kernel
             want = {"brute_hit": per * spp, "clustered_hit": 0,
-                    "bvh_walk": 0}
+                    "bvh_walk": 0, "connect": spp * fused}
             check(r["tris"] == 12 and r["scene_file"] is None
                   and r["kernel_route"] == "brute" and r["spp"] == spp
                   and r["depth"] == depth and r["gpu"] == gpu,
                   f"phase13a {name}: {r}")
             check(r["launches"] == want and r["warmup_launches"] == {
-                **want, "brute_hit": per * chunk},
+                **want, "brute_hit": per * chunk,
+                "connect": chunk * fused},
                 f"phase13a {name}: launches {r['launches']}, warm-up "
                 f"{r['warmup_launches']}")
             check(r["rays"] > 0 and r["samples_per_s"] > 0,
@@ -2107,7 +2128,8 @@ def phase13_tools(dev, gpu):
                 golden_dir=scene_dir, png_dir=os.path.join(tmp, "png"),
                 device=dev)
             want = {"brute_hit": 0, "clustered_hit": 0, "bvh_walk": 0,
-                    kernel: BDPT_PER_PASS["area"] * FLAGSHIP_SPP}
+                    kernel: BDPT_PER_PASS["area"] * FLAGSHIP_SPP,
+                    "connect": FLAGSHIP_SPP}
             check(row["kernel_route"] == route and row["launches"] == want,
                   f"phase13b {name}: route {row['kernel_route']}, "
                   f"launches {row['launches']}")
@@ -2186,7 +2208,8 @@ def phase13_tools(dev, gpu):
                 check(r["tris"] == tris and r["kernel_route"] == "clustered"
                       and r["launches"] == {
                           "brute_hit": 0, "clustered_hit":
-                          BDPT_PER_PASS["area"] * 8, "bvh_walk": 0}
+                          BDPT_PER_PASS["area"] * 8, "bvh_walk": 0,
+                          "connect": 8}
                       and r["gpu"] == gpu,
                       f"phase13d k={ups} {build}: {r}")
                 frames[build] = np.load(frame)
@@ -2512,7 +2535,8 @@ def phase15_train(dev, gpu, mesh, grad10, grads10, env10):
             turns.append({"mode": mode, "step_s": secs,
                           "rel_of_max_grad": rel})
         check(step.launches == dict(zip(("brute_hit", "clustered_hit",
-                                         "bvh_walk"), want)),
+                                         "bvh_walk", "connect"),
+                                        (*want, 0))),
               f"phase15c {label}: graph launches {step.launches}")
         rec = {"turns": turns, "capture_s": step.capture_s,
                "nodes": step.nodes, "pool_bytes": step.pool_bytes,
@@ -2544,6 +2568,207 @@ def phase15_train(dev, gpu, mesh, grad10, grads10, env10):
     detail["seconds"] = time.perf_counter() - t_phase
     print(f"[phase15] {detail['seconds']:.1f} s")
     return detail
+
+
+# --- phase 16: the connections kernel against the op chain -----------------
+
+P16_SPP = 4                  # passes of each timed render (one chunk)
+P16_SCENES = ("cbspheres", "meshbox_458k")   # benchmark/configs/
+P16_RTOL, P16_ATOL = 1e-5, 1e-6
+
+
+@contextlib.contextmanager
+def patched(obj, **attrs):
+    """obj's attributes set to attrs within the block, restored after."""
+    old = {k: getattr(obj, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(obj, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(obj, k, v)
+
+
+def connect_pass(scene, cfg, key, route):
+    """One eager sample_pass over every pixel with its connections on
+    `route` ("kernel" or "chain").  Returns (eye_L, splat ids, splat
+    values, the kernel's ops/connect.py launch_args arguments or None)."""
+    import torch
+    from bidirectional_pathtracing_tpu_torch.models import bdpt
+    from bidirectional_pathtracing_tpu_torch.ops import connect as co
+    seen = {}
+    splat, launch_args = bdpt._splat, co.launch_args
+
+    def record_splat(light_img, flat, vals):
+        seen["flat"], seen["vals"] = flat.clone(), vals.clone()
+        return splat(light_img, flat, vals)
+
+    def record_args(*args):
+        seen["args"] = args
+        return launch_args(*args)
+
+    pix = torch.arange(cfg.width * cfg.height, device=scene.device)
+    with patched(co, route=lambda *a: route, launch_args=record_args), \
+            patched(bdpt, _splat=record_splat), torch.no_grad():
+        eye, _ = bdpt.sample_pass(scene, key, cfg.width, cfg.height, pix,
+                                  cfg, inv_ns_aa=1.0 / cfg.spp)
+    torch.cuda.synchronize()
+    return eye, seen.get("flat"), seen.get("vals"), seen.get("args")
+
+
+def connect_bytes(args):
+    """Bytes one launch of the connections kernel moves: every argument
+    it reads once (both subpaths, the fresh light samples, the blocked
+    mask, eye_L and the scene's tables) and every output written once
+    (eye_L and the splat ids and values): the tensors ops/connect.py
+    launch_args(*args) points the kernel at, with eye_L counted twice."""
+    from bidirectional_pathtracing_tpu_torch.ops import connect as co
+    _, keep, _ = co.launch_args(*args)
+    return sum(x.nbytes for x in keep.values()) + keep["eye_l"].nbytes
+
+
+def phase16_connect(dev, gpu):
+    """Phase 16: on the benchmark's cbspheres and meshbox_458k scenes at
+    480x360 d5, one eager pass with the connections through the kernel
+    (csrc/connect.cu) and one through the op chain, on the same key: eye_L
+    and the splat ids and values held within rtol 1e-5 / atol 1e-6, and
+    the share of bitwise-equal lanes printed.  The kernel alone timed on
+    that pass's arguments (device_ms, call_ms) against its bound (the
+    bytes connect_bytes counts over 3.35 TB/s).  Then the main path: a
+    render of P16_SPP passes through the captured pass with the kernel's
+    launch count set to 0 before it (P16_SPP launches: one a pass,
+    replays included), and the same render with the connections through
+    the op chain; the connections' device time a pass from the pass
+    marks of each.  Returns {"line": the kernels line's entry, "detail":
+    {...}}."""
+    import torch
+    from benchmark import scene as bscene
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.core import rng
+    from bidirectional_pathtracing_tpu_torch.ops import connect as co
+    from bidirectional_pathtracing_tpu_torch.utils import step_graph, tracing
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+    from bidirectional_pathtracing_tpu_torch.utils.timing import (
+        call_ms, device_ms)
+
+    t_phase = time.perf_counter()
+    cfg = RenderConfig(spp=P16_SPP, max_ray_depth=DEPTH, width=W, height=H,
+                       integrator="bdpt", seed=0, samples_per_chunk=P16_SPP)
+    detail = {}
+    for label in P16_SCENES:
+        scene = bscene.program_scene(bscene.arrays(bscene.load_config(label)),
+                                     dev)
+        key = rng.pass_keys(rng.key(16), [0], dev)[0]
+        k_eye, k_flat, k_vals, args = connect_pass(scene, cfg, key, "kernel")
+        c_eye, c_flat, c_vals, c_args = connect_pass(scene, cfg, key, "chain")
+        check(args is not None and c_args is None,
+              f"phase16 {label}: the routes did not take the kernel / chain")
+        check(float(c_eye.abs().sum()) > 0, f"phase16 {label}: black eye_L")
+
+        def close(a, b):
+            return bool(((a - b).abs() <= P16_ATOL + P16_RTOL * b.abs())
+                        .all())
+        live = (k_vals != 0).any(-1) | (c_vals != 0).any(-1)
+        check(close(k_eye, c_eye), f"phase16 {label}: eye_L beyond rtol "
+              f"{P16_RTOL} / atol {P16_ATOL} of the op chain's")
+        check(torch.equal(k_flat[live], c_flat[live]),
+              f"phase16 {label}: splat ids differ from the op chain's")
+        check(close(k_vals, c_vals), f"phase16 {label}: splat values beyond "
+              f"rtol {P16_RTOL} / atol {P16_ATOL} of the op chain's")
+        bitwise = {
+            "eye": float((k_eye == c_eye).all(-1).float().mean()),
+            "splat": float((k_vals == c_vals).all(-1).float().mean())}
+        max_abs_err = max(float((k_eye - c_eye).abs().max()),
+                          float((k_vals - c_vals).abs().max()))
+
+        # the kernel alone on the pass's arguments, eye_L a scratch copy
+        run_args = (*args[:5], args[5].clone(), *args[6:8], cfg, args[10])
+
+        def kernel():
+            return co.connect(*run_args)
+        k_ms, k_src = device_ms(kernel, "connect_kernel", 20)
+        c_ms = call_ms(kernel, 20)
+        n_bytes = connect_bytes(args)
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        del run_args, args
+
+        # the main path: render() through the captured pass
+        step_graph.clear()
+        render(scene, dataclasses.replace(cfg, spp=1, samples_per_chunk=1),
+               seed=1)                                        # warm-up
+        torch.cuda.synchronize()
+        co.connect.launches = 0
+        res = render(scene, cfg, seed=2)
+        launches = co.connect.launches
+        check(launches == P16_SPP, f"phase16 {label}: {launches} connect "
+              f"launches, want {P16_SPP}")
+        check(np.isfinite(res.combined).all() and res.combined.mean() > 0,
+              f"phase16 {label}: non-finite or black frame")
+        k_phase = tracing.device_phases(last=P16_SPP, device=dev)
+        nodes = step_graph.cached()[-1].nodes
+        # the same render with the connections through the op chain
+        step_graph.clear()
+        with patched(co, route=lambda *a: "chain"):
+            render(scene, dataclasses.replace(cfg, spp=1,
+                                              samples_per_chunk=1), seed=1)
+            render(scene, cfg, seed=2)
+        c_phase = tracing.device_phases(last=P16_SPP, device=dev)
+        chain_nodes = step_graph.cached()[-1].nodes
+        step_graph.clear()
+        rec = {
+            "lanes": W * H, "launches": launches, "bitwise_share": bitwise,
+            "max_abs_err": max_abs_err, "device_ms": k_ms,
+            "device_source": k_src, "call_ms": c_ms,
+            "bytes": n_bytes, "bytes_per_lane": n_bytes / (W * H),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / k_ms,
+            "connect_phase_ms": float(k_phase[:, 1].mean()),
+            "chain_connect_phase_ms": float(c_phase[:, 1].mean()),
+            "walk_phase_ms": float(k_phase[:, 0].mean()),
+            "nodes": nodes, "chain_nodes": chain_nodes,
+            "frame_mean": float(res.combined.mean())}
+        detail[label] = rec
+        print(f"[phase16] {label}: kernel vs op chain within rtol "
+              f"{P16_RTOL} / atol {P16_ATOL}, bitwise lanes {bitwise}, max "
+              f"abs err {max_abs_err:.3g}; kernel device {k_ms:.4f} ms "
+              f"({k_src}), call {c_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}, {rec['bytes_per_lane']:.0f} B a lane, "
+              f"{100 * b_ms / k_ms:.2f} %); connections a pass "
+              f"{rec['connect_phase_ms']:.3f} ms through the kernel, "
+              f"{rec['chain_connect_phase_ms']:.3f} ms through the op "
+              f"chain; graph nodes {nodes} / {chain_nodes}; launches "
+              f"{launches} over {P16_SPP} passes ({gpu})")
+        del scene, res
+        torch.cuda.empty_cache()
+    detail["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase16] {detail['seconds']:.1f} s")
+    first, other = (detail[k] for k in P16_SCENES)
+    line = {
+        "name": "connect",
+        "route": "cuda",
+        "source": "bidirectional_pathtracing_tpu_torch/csrc/connect.cu",
+        "replaces": "bidirectional_pathtracing_tpu/models/bdpt.py:968 "
+                    "(sample_pass's combo loop over _estimate_radiance and "
+                    "_mis_weight, not a Pallas kernel)",
+        "launches": first["launches"],
+        "max_abs_err": max(first["max_abs_err"], other["max_abs_err"]),
+        "ms": first["device_ms"],
+        "device_ms": first["device_ms"],
+        "device_source": first["device_source"],
+        "call_ms": first["call_ms"],
+        "gate": "tolerance",
+        "plain_ms": first["chain_connect_phase_ms"],
+        "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"],
+        "library_ms": None,
+        "bitwise_share": first["bitwise_share"],
+    }
+    for k in ("launches", "device_ms", "call_ms", "bound_ms",
+              "bitwise_share"):
+        line[f"{P16_SCENES[1]}_{k}"] = other[k]
+    line[f"{P16_SCENES[1]}_plain_ms"] = other["chain_connect_phase_ms"]
+    return {"line": line, "detail": detail}
 
 
 def main() -> int:
@@ -2776,6 +3001,7 @@ def main() -> int:
     del big
     train15 = phase15_train(dev, gpu, mesh, grad, grads10, env10)
     del mesh, grads10, env10
+    connect16 = phase16_connect(dev, gpu)
 
     # Every kernel: ms is device_ms, the kernel's own time on the device
     # (utils/timing.py; device_source says whether from the profiler or a
@@ -2870,7 +3096,7 @@ def main() -> int:
         "flagship_launches": tool_launches["clustered_hit"]["flagship"],
         "ab_launches": tool_launches["clustered_hit"]["ab"],
     }] + k3["kernels"] + [walk_kernel_line(walk_times, walk_launches,
-                                           walk_err)]}
+                                           walk_err), connect16["line"]]}
     detail = {"gpu": gpu, "k1_times": times, "k2_times": k2_times,
               "checks": {"cornell": rep_box, "soup8192": rep_soup,
                          f"meshbox_L{MESH_LEVEL}": rep_mesh,
@@ -2891,7 +3117,8 @@ def main() -> int:
                   "wall_s": st8s["wall_time_s"], "vs_default_rel": rel_5s},
               "k3": k3["detail"], "env": env, "pt": pt, "cli": cli,
               "grad": grad, "mp": mp, "bvh": bvh12, "tools": tools13,
-              "graph": graph14, "train": train15}
+              "graph": graph14, "train": train15,
+              "connect": connect16["detail"]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     os.makedirs(os.path.dirname(KERNEL_CHECK), exist_ok=True)
@@ -2900,7 +3127,8 @@ def main() -> int:
                    "kernels": kernels["kernels"],
                    "gates": {"phase10": grad, "phase11": mp,
                              "phase12": bvh12, "phase13": tools13,
-                             "phase14": graph14, "phase15": train15}},
+                             "phase14": graph14, "phase15": train15,
+                             "phase16": connect16["detail"]}},
                   f, indent=1)
     total_s = time.perf_counter() - t_script
     detail["total_s"] = total_s
