@@ -771,7 +771,8 @@ def sample_pass(scene: Scene, key, width: int, height: int, pixel_ids,
     isect: the closest-hit / any-hit pair to go through (ops/intersect.py).
     The pass marks (utils/tracing.py mark) its start and the ends of its
     subpath walks (eye, light and env emission), its connections and its
-    splat scatter.
+    splat scatter; with an envmap, also the start and end of its emission
+    subpaths and of its eye-side env families on the ENV ring.
     The connections run as one kernel where ops/connect.py route says so
     (on CUDA, nothing needing a gradient, subpaths within its depth cap),
     else as the op chain below, each combo through _estimate_radiance and
@@ -842,15 +843,19 @@ def sample_pass(scene: Scene, key, width: int, height: int, pixel_ids,
     env_rays = torch.zeros((), dtype=torch.int64, device=dev)
     env = scene.envmap is not None and nv >= 2
     if env:
+        tracing.mark(tracing.ENV, 0, dev)
         ctr, rad_b = _scene_bounds(scene)
         pdf_pos = 1.0 / (PI * rad_b * rad_b)
         sub_rays = _env_subpath_splats(
             scene, keys, width, height, nv, ctr, rad_b, pdf_pos, splats,
             inv_ns_aa, isect=isect)
+        tracing.mark(tracing.ENV, 1, dev)
     tracing.mark(tracing.PASS, 1, dev)
     if env:
+        tracing.mark(tracing.ENV, 2, dev)
         eye_L, env_rays = _env_eye_families(scene, eye, eye_steps, keys, nv,
                                             pdf_pos, isect=isect)
+        tracing.mark(tracing.ENV, 3, dev)
         env_rays = env_rays + sub_rays
 
     # --- connections: i_eye in 1..nv, i_light in 0..nv --------------------

@@ -10,7 +10,9 @@
     its own device (parallel/render.py render_rank), the eye slabs and
     light images are gathered to every rank and reduced there in rank
     order: the frame is bitwise parallel/render.py render_frame_sharded on
-    the same grid, on every rank;
+    the same grid, on every rank.  Under the profiler (utils/tracing.py)
+    the gather and the reduction are a "parallel.gather" span, which
+    waits for the slowest rank's slab;
   - main(): one process per rank,
 
       python -m bidirectional_pathtracing_tpu_torch.parallel.launch \\
@@ -40,6 +42,7 @@ import torch.distributed as dist
 
 from bidirectional_pathtracing_tpu_torch.parallel.render import (
     reduce_frame, render_rank)
+from bidirectional_pathtracing_tpu_torch.utils import tracing
 
 _TAG = "[bdpt-torch]"
 _TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
@@ -92,11 +95,12 @@ def render_frame_multihost(scene, cfg, sp: int = 1, seed=None):
     dp = world // sp
     eye, light = render_rank(scene, cfg, dp, sp, rank, seed=seed)
     eye, light = eye.cpu(), light.cpu()
-    eyes = [torch.empty_like(eye) for _ in range(world)]
-    lights = [torch.empty_like(light) for _ in range(world)]
-    dist.all_gather(eyes, eye)
-    dist.all_gather(lights, light)
-    return reduce_frame(eyes, lights, cfg, dp, sp)
+    with tracing.span("parallel.gather"):
+        eyes = [torch.empty_like(eye) for _ in range(world)]
+        lights = [torch.empty_like(light) for _ in range(world)]
+        dist.all_gather(eyes, eye)
+        dist.all_gather(lights, light)
+        return reduce_frame(eyes, lights, cfg, dp, sp)
 
 
 def build_argparser():

@@ -33,18 +33,23 @@ spans with the profiler's trace:
   - Device marks (mark): a BDPT pass (models/bdpt.py sample_pass) marks
     its start, the end of its subpath walks, of its connections and of
     its splat scatter; a training step (step_graph.GradStep) its start and
-    the ends of its loss, its gradient and its update.  On the card a mark
-    is a one-thread kernel (csrc/trace_mark.cu) that writes the device's
-    %globaltimer into ring[slot][mark] of a persistent [SLOTS, MARKS]
-    int64 ring, one for passes and one for steps a device, made before
-    the first capture (ring); the last mark advances the ring's slot
-    counter on the device.  Captured like any kernel, so every replay
-    keeps its own times until the ring wraps; nothing is read on the timed
-    path.  On the CPU, where an eager pass is synchronous, a mark writes
-    the host's clock and the slot counter is the host's.  Marks are
-    written whether tracing is on or not, by every pass and step: a
-    capture's warm-up pass too.  device_marks and device_phases read a
-    ring (a copy to the host, which waits for the device) when asked.
+    the ends of its loss, its gradient and its update.  A BDPT pass with
+    an environment map also marks, on a ring of its own (ENV), the start
+    and the end of its emission subpaths (inside its walks) and of its
+    eye-side env families (inside its connections); a pass without one
+    writes no ENV mark, and the pass marks mean what they mean on every
+    pass.  On the card a mark is a one-thread kernel (csrc/trace_mark.cu)
+    that writes the device's %globaltimer into ring[slot][mark] of a
+    persistent [SLOTS, MARKS] int64 ring, one a kind (passes, steps, env
+    passes) a device, made before the first capture (ring); the last mark
+    advances the ring's slot counter on the device.  Captured like any
+    kernel, so every replay keeps its own times until the ring wraps;
+    nothing is read on the timed path.  On the CPU, where an eager pass
+    is synchronous, a mark writes the host's clock and the slot counter
+    is the host's.  Marks are written whether tracing is on or not, by
+    every pass and step: a capture's warm-up pass too.  device_marks and
+    device_phases read a ring (a copy to the host, which waits for the
+    device) when asked.
 """
 
 from __future__ import annotations
@@ -65,11 +70,13 @@ from torch.autograd import profiler as _profiler
 SLOTS = 256           # passes (or steps) a ring keeps
 MARKS = 4             # marks a pass or step
 MAX_SPANS = 65536     # spans kept, the newest
-PASS, STEP = "pass", "step"
-KINDS = (PASS, STEP)
-# the phases between consecutive marks
+PASS, STEP, ENV = "pass", "step", "env"
+KINDS = (PASS, STEP, ENV)
+# the phases between consecutive marks; an env pass's middle phase is the
+# pass's own mark 1 between its two families
 PHASES = {PASS: ("walks", "connections", "splat"),
-          STEP: ("forward", "backward", "update")}
+          STEP: ("forward", "backward", "update"),
+          ENV: ("emission", "between", "eye")}
 CAPTURES = "step_graph.captures"
 
 COUNTS: dict = {}
@@ -218,7 +225,8 @@ def _slot_counts() -> dict:
 
 
 def slot_count(kind: str, device) -> int:
-    """The passes (kind PASS) or steps (STEP) marked on `device` so far."""
+    """The passes (kind PASS), steps (STEP) or env passes (ENV) marked on
+    `device` so far."""
     return int(ring(device).slot[KINDS.index(kind)])
 
 
