@@ -49,6 +49,7 @@ from bidirectional_pathtracing_tpu_torch.ops import camera_ops
 from bidirectional_pathtracing_tpu_torch.ops import connect as connect_ops
 from bidirectional_pathtracing_tpu_torch.ops import envlight
 from bidirectional_pathtracing_tpu_torch.ops import lights as light_ops
+from bidirectional_pathtracing_tpu_torch.ops import walk as walk_ops
 from bidirectional_pathtracing_tpu_torch.ops.intersect import (
     DISPATCH, Intersector, _window, scene_occluded_segment)
 from bidirectional_pathtracing_tpu_torch.scene.types import Scene
@@ -84,11 +85,19 @@ def _prepare_subpath(scene: Scene, o, d, point_pdf, dir_pdf, init_radiance,
     Returns (Subpath, steps) — steps = (d_step [S, nv-1, 3],
     miss [S, nv-1]): the ray direction of each walk step and whether a LIVE
     lane missed the scene on it.
+
+    Each step runs as one kernel after its closest hit where ops/walk.py
+    route says so (on CUDA, nothing needing a gradient; _walk_kernel),
+    else as the op chain below.
     """
     s = o.shape[0]
     dev = o.device
     v1_pos = o
     v1_alpha = init_radiance / point_pdf[..., None]
+    if nv >= 2 and walk_ops.route(scene, dev) == "kernel":
+        return _walk_kernel(scene, o, d, point_pdf, dir_pdf, v1_alpha,
+                            init_normal, keys, site, nv, first_min_t,
+                            first_max_t, adjoint, isect)
 
     prev_pdf = torch.clamp_min(dir_pdf, 1e-12)
     prev_f = torch.ones((s, 3), device=dev)
@@ -152,6 +161,29 @@ def _prepare_subpath(scene: Scene, o, d, point_pdf, dir_pdf, init_radiance,
         steps = (torch.zeros((s, 0, 3), device=dev),
                  torch.zeros((s, 0), dtype=torch.bool, device=dev))
     return path, steps
+
+
+def _walk_kernel(scene: Scene, o, d, point_pdf, dir_pdf, v1_alpha,
+                 init_normal, keys, site: int, nv: int, first_min_t,
+                 first_max_t, adjoint: bool, isect: Intersector):
+    """_prepare_subpath on the card: each step's closest hit, then one
+    launch of ops/walk.py's kernel, which writes the step's vertex and the
+    next step's ray (dead lanes get an empty window, as above)."""
+    s = o.shape[0]
+    buf = walk_ops.buffers(s, nv, o.device)
+    mats = bsdf_ops.rows(scene.materials)
+    start = {"n": init_normal.contiguous(), "alpha": v1_alpha.contiguous(),
+             "p": point_pdf.contiguous(), "dir_pdf": dir_pdf.contiguous()}
+    ray = (o, d, _window(first_min_t, s, o), _window(first_max_t, s, o))
+    for i in range(nv - 1):
+        hit = isect.closest(scene, *ray)
+        ray = walk_ops.step(mats, hit, buf, i, ray[0], ray[1], start, keys,
+                            site, adjoint)
+    # [S, nv + 1, ...] views of the slot-by-slot storage
+    path = Subpath(*(buf[k].transpose(0, 1) for k in Subpath._fields[:-1]),
+                   dir_pdf=dir_pdf)
+    return path, (buf["step_d"].transpose(0, 1),
+                  buf["step_miss"].transpose(0, 1))
 
 
 def _vert(path: Subpath, i: int):

@@ -2,8 +2,9 @@
 
 Each kernel is one .cu file with a plain C entry point.  On first use it is
 compiled with nvcc for sm_90a into build/torch_kernels/ at the repository
-root (a directory .gitignore lists), named by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
+root (a directory .gitignore lists), named by a hash of the source, the
+local headers it includes and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.
 A missing nvcc or a failed build raises with the compiler's output.
 Nothing is compiled at import time.  start / finish / compile_library are the
 build step itself, which ops/native.py also uses for its g++ build.
@@ -15,6 +16,7 @@ import ctypes
 import hashlib
 import itertools
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v",
               "-shared", "-Xcompiler", "-fPIC")
 
+_INCLUDE = re.compile(r'\s*#\s*include\s+"([^"]+)"')
 _LOADED: dict[str, ctypes.CDLL] = {}
 # name -> {"seconds", "cached", "log", "so", "batch"}: every library this
 # process loaded (the nvcc kernels and compile_library's builds).  The
@@ -59,14 +62,35 @@ class Job(NamedTuple):
     proc: subprocess.Popen | None  # None when `so` was already built
 
 
+def _sources(src: str) -> list:
+    """src and the files it includes by `#include "name"` from its own
+    directory (csrc/shading.cuh), theirs in turn, each once."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path) as f:
+            for line in f:
+                m = _INCLUDE.match(line)
+                if m:
+                    todo.append(os.path.join(os.path.dirname(path),
+                                             m.group(1)))
+    return seen
+
+
 def start(compiler: str, flags, src: str, prefix: str) -> Job:
     """Start `compiler *flags -o <so> src` unless the library is already
     built.  The library is BUILD_DIR/lib<prefix>_<hash>.so, named by a hash
-    of the source and the flags; the compiler writes a file of its own
+    of the flags, the source and the local headers it includes (_sources);
+    the compiler writes a file of its own
     that finish() moves into place, so a concurrent build never sees half
     of one."""
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in _sources(src):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     so = os.path.join(BUILD_DIR, f"lib{prefix}_{digest.hexdigest()[:16]}.so")
     if os.path.exists(so):
         return Job(src, so, None, None)

@@ -55,6 +55,23 @@ def gather(materials: Materials, mid) -> Materials:
     return Materials(*(a[m] for a in materials))
 
 
+def rows(materials: Materials) -> torch.Tensor:
+    """The material table [M, 24] float32 in csrc/shading.cuh's row layout
+    (the BDPT kernels' table): kind, albedo, emission, ior, roughness, eta,
+    k, reflectance, transmittance and three pads, made on the table's
+    device by torch ops (no host copy, so a CUDA graph records it)."""
+    m = materials
+
+    def col(x):
+        return x.to(torch.float32)[:, None]
+
+    return torch.cat([col(m.kind), m.albedo, m.emission, col(m.ior),
+                      col(m.roughness), m.eta, m.k, m.reflectance,
+                      m.transmittance,
+                      torch.zeros((m.count, 3), dtype=torch.float32,
+                                  device=m.kind.device)], dim=1)
+
+
 def is_delta(materials: Materials, mid):
     kind = materials.kind[torch.clamp(mid, 0, materials.count - 1).long()]
     return ((kind == MAT_MIRROR) | (kind == MAT_REFRACTION)

@@ -7,8 +7,8 @@ connections go:
 
   - "kernel": the pass runs on CUDA, its subpaths have at most
     MAX_VERTICES real vertices, and nothing needs a gradient (grad mode is
-    off, or no scene tensor requires grad: the test of
-    utils/step_graph.py route);
+    off, or no scene tensor requires grad): scene/types.py takes_kernels,
+    which ops/walk.py route asks too;
   - "chain" otherwise: sample_pass's op chain (_mis_tables,
     _estimate_radiance, _mis_weight), the kernel's CPU twin, and the only
     path autograd sees through.
@@ -32,9 +32,9 @@ import ctypes
 
 import torch
 
-from bidirectional_pathtracing_tpu_torch.ops import _build
+from bidirectional_pathtracing_tpu_torch.ops import _build, bsdf
 from bidirectional_pathtracing_tpu_torch.ops import camera_ops
-from bidirectional_pathtracing_tpu_torch.scene.types import needs_grad
+from bidirectional_pathtracing_tpu_torch.scene.types import takes_kernels
 
 _KERNEL = "connect"
 MAX_VERTICES = 8      # csrc/connect.cu kMaxV: max_ray_depth 7
@@ -58,33 +58,29 @@ class Args(ctypes.Structure):
 def route(scene, nv: int, device) -> str:
     """"kernel" or "chain": how a pass's connections run on `device` with
     nv real vertices a subpath."""
-    if (torch.device(device).type != "cuda" or nv > MAX_VERTICES
-            or needs_grad(scene)):
+    if nv > MAX_VERTICES or not takes_kernels(scene, device):
         return "chain"
     return "kernel"
 
 
 def _scene_tables(scene):
-    """(materials [M, 16], lights [L, 12], camera [14]) float32 on the
-    scene's device, in csrc/connect.cu's row layouts: kind, albedo,
-    emission, ior, roughness, eta, k, a pad; kind, radiance, position,
-    direction, area, a pad; c2w row by row, the position and the tangents
-    of the half fields of view as camera_ops computes them."""
-    m, li, cam = scene.materials, scene.lights, scene.camera
+    """(materials [M, 24], lights [L, 12], camera [14]) float32 on the
+    scene's device, in csrc/connect.cu's row layouts: ops/bsdf.py rows;
+    kind, radiance, position, direction, area, a pad; c2w row by row, the
+    position and the tangents of the half fields of view as camera_ops
+    computes them."""
+    li, cam = scene.lights, scene.camera
 
     def col(x):
         return x.to(torch.float32)[:, None]
 
-    mats = torch.cat([col(m.kind), m.albedo, m.emission, col(m.ior),
-                      col(m.roughness), m.eta, m.k,
-                      torch.zeros_like(col(m.ior))], dim=1)
     lights = torch.cat([col(li.kind), li.radiance, li.position,
                         li.direction, col(li.area),
                         torch.zeros_like(col(li.area))], dim=1)
     camera = torch.cat([cam.c2w.reshape(9), cam.pos,
                         camera_ops._tan_half(cam.hfov).reshape(1),
                         camera_ops._tan_half(cam.vfov).reshape(1)])
-    return (mats.to(torch.float32).contiguous(),
+    return (bsdf.rows(scene.materials),
             lights.to(torch.float32).contiguous(),
             camera.to(torch.float32).contiguous())
 
@@ -97,9 +93,11 @@ def launch_args(scene, eye, light, fresh, blocked, eye_L, width: int,
                 height: int, consistent_camera: bool, t1_reference: bool,
                 inv_ns_aa):
     """(Args, the tensors it points into, (flat, values)): the kernel's
-    arguments over contiguous copies or views of the inputs, and the splat
-    outputs it writes (None without a light subpath).  The returned
-    tensors must outlive the launch."""
+    arguments over contiguous copies or views of the inputs, the Subpath
+    tensors slot by slot ([nv + 1, S, ...]: a view of the walk kernel's,
+    ops/walk.py, a copy of the op chain's), and the splat outputs it writes
+    (None without a light subpath).  The returned tensors must outlive the
+    launch."""
     s, nv = eye.pos.shape[0], eye.pos.shape[1] - 1
     dev = eye.pos.device
     if eye_L.dtype != torch.float32 or eye_L.shape != (s, 3) \
@@ -109,14 +107,19 @@ def launch_args(scene, eye, light, fresh, blocked, eye_L, width: int,
     if not isinstance(inv_ns_aa, torch.Tensor):
         inv_ns_aa = torch.full((), inv_ns_aa, dtype=torch.float32,
                                device=dev)
-    t = {"e_pos": eye.pos, "e_n": eye.n, "e_alpha": eye.alpha,
-         "e_mat": eye.mat, "e_valid": eye.valid, "mats": mats,
-         "lights": lights, "cam": cam, "inv_ns_aa": inv_ns_aa,
-         "eye_l": eye_L}
+
+    def slots(x):      # [S, nv + 1, ...] -> [nv + 1, S, ...]
+        return x.transpose(0, 1)
+
+    t = {"e_pos": slots(eye.pos), "e_n": slots(eye.n),
+         "e_alpha": slots(eye.alpha), "e_mat": slots(eye.mat),
+         "e_valid": slots(eye.valid), "mats": mats, "lights": lights,
+         "cam": cam, "inv_ns_aa": inv_ns_aa, "eye_l": eye_L}
     splats = None
     if light is not None:
-        t.update(l_pos=light.pos, l_n=light.n, l_alpha=light.alpha,
-                 l_p=light.p, l_mat=light.mat, l_valid=light.valid,
+        t.update(l_pos=slots(light.pos), l_n=slots(light.n),
+                 l_alpha=slots(light.alpha), l_p=slots(light.p),
+                 l_mat=slots(light.mat), l_valid=slots(light.valid),
                  l_dir_pdf=light.dir_pdf, blocked=blocked)
         for k in _FRESH:
             t["f_" + k] = torch.stack([fresh[i][k] for i in range(1, nv + 1)])

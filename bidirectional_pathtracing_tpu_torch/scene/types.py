@@ -183,10 +183,18 @@ def tensors(x):
 
 def needs_grad(scene: Scene) -> bool:
     """Whether autograd records a pass over the scene: grad mode is on and
-    a scene tensor requires grad (utils/step_graph.py route, ops/connect.py
-    route)."""
+    a scene tensor requires grad (utils/step_graph.py route,
+    takes_kernels)."""
     return torch.is_grad_enabled() and any(t.requires_grad
                                            for t in tensors(scene))
+
+
+def takes_kernels(scene: Scene, device) -> bool:
+    """Whether a BDPT pass over the scene on `device` takes the integrator's
+    hand-written kernels (ops/walk.py, ops/connect.py route): on CUDA, with
+    nothing needing a gradient; else their op chains, the CPU's and
+    autograd's path."""
+    return torch.device(device).type == "cuda" and not needs_grad(scene)
 
 
 _PARTS = (("geometry", Geometry), ("materials", Materials),

@@ -34,7 +34,8 @@ once into a CUDA graph and replayed for every pass of a chunk:
     graph's private pool reserved; nodes is the graph's node count.
   - Launch accounting: the kernel wrappers count their launches in
     Python (brute_hit.launches, clustered_hit.launches,
-    bvh_walk.launches, connect.launches), which a replay does not run.
+    bvh_walk.launches, connect.launches, and walk.step.launches under
+    "walk"), which a replay does not run.
     The counts added during the capture are the pass's launches, added
     again on each replay; the counts as they were before the warm-up are
     restored after the capture.  So every count means what it means for
@@ -100,7 +101,8 @@ from bidirectional_pathtracing_tpu_torch.core.math import const
 from bidirectional_pathtracing_tpu_torch.models import bdpt
 from bidirectional_pathtracing_tpu_torch.models import pathtracer as pt
 from bidirectional_pathtracing_tpu_torch.ops import (
-    _memo, connect, intersect_brute, intersect_bvh, intersect_clustered)
+    _memo, connect, intersect_brute, intersect_bvh, intersect_clustered,
+    walk)
 from bidirectional_pathtracing_tpu_torch.ops.intersect import (
     DISPATCH, Intersector)
 from bidirectional_pathtracing_tpu_torch.scene.types import (
@@ -114,7 +116,8 @@ LUMINANCE = (0.2126, 0.7152, 0.0722)
 KERNELS = {"brute_hit": intersect_brute.brute_hit,
            "clustered_hit": intersect_clustered.clustered_hit,
            "bvh_walk": intersect_bvh.bvh_walk,
-           "connect": connect.connect}
+           "connect": connect.connect,
+           "walk": walk.step}
 
 _disabled = 0
 _cache: OrderedDict = OrderedDict()

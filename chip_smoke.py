@@ -177,14 +177,16 @@ a zero exit):
           vs_baseline; its four rows, each on the Cornell box (12
           triangles, scene_file null: the card's machine holds no
           reference checkout), through K1 with 2d + 1 launches a pass
-          over the warm-up chunk and over the timed chunks;
+          (and 2d of the walk-step kernel) over the warm-up chunk and
+          over the timed chunks;
        b. flagship rows at 8 spp (the tool's default is 128):
           tests/golden/torch_port/cbox_spheres.dae through K1, and the
           level-4 mesh box written as a file and loaded by the lucy
           recipe (two upsamples of the meshes above 1,000 triangles:
           163,852 triangles) through K2; each row's eye, light and
           combined images bitwise equal to render() of its config, 11
-          launches a pass, its block error against the MIS-PT referee;
+          hit launches and 10 walk-step launches a pass, its block error
+          against the MIS-PT referee;
        c. the scaling bench on cbox_spheres.dae: its --chip point, the
           one-rank grid (a one-process gloo group) against the unsharded
           step at 160x120 4 spp d4, their frames bitwise equal; and its
@@ -194,7 +196,8 @@ a zero exit):
        d. the cluster-cut A/B on that level-4 file upsampled 0 and 1 times
           (10,252 and 40,972 triangles), midpoint and SAH, each cell in a
           fresh process at 480x360 d5 8 spp in one chunk through K2 (88
-          launches); the two cuts' frames within phase 3a's gates.
+          launches, and 80 of the walk-step kernel); the two cuts' frames
+          within phase 3a's gates.
  14. the captured pass (utils/step_graph.py, the port of the JAX step's
      jax.jit and lax.scan): eight cells at 480x360 d5 8 spp in one chunk,
      BDPT on the Cornell box (K1), the open env scene (K1), L6 and L6 with
@@ -243,6 +246,17 @@ a zero exit):
      of 4 passes through the captured pass with the kernel's launch count
      zeroed before it (4 launches), and the same render through the op
      chain, each pass's connections timed by the pass marks.
+ 17. the BDPT walk-step kernel (csrc/walk.cu) against the op chain it
+     replaces, on the benchmark's cbspheres, meshbox_458k and skylit_458k
+     scenes (the last with its sky) at 480x360 d5 (phase17_walk): one
+     eager pass through each route on the same key, every walk's Subpath
+     tensors and steps within rtol 1e-5 / atol 1e-6, the bitwise share of
+     lanes of each and of eye_L and the light image printed, with the
+     bits of the first lanes that differ; each launch of the pass timed
+     alone on its arguments; a render of 4 passes through the captured
+     pass with the kernel's launch count zeroed before it (5 launches a
+     walk a pass), and the same render through the op chain, each pass's
+     walks timed by the pass marks.
 
 Every earlier phase renders through the captured pass too, since it is
 render()'s default on the card.  Phases 12 and 14 share one load of the
@@ -297,7 +311,15 @@ captured render, its bound the bytes of its arguments (both subpaths,
 the fresh light samples, the blocked mask, eye_L read and written, the
 splats written: 1,056 B a lane at d5) over 3.35 TB/s, and its launches
 those of phase 16's cbspheres render.  It replaces no Pallas kernel:
-"replaces" names the JAX package's combo loop.
+"replaces" names the JAX package's combo loop.  The walk-step kernel's
+line (walk, phase 17) has the cbspheres pass's times (the sum of its ten
+launches'), the other two scenes' under their names, and all_bitwise,
+whether every lane of every walk tensor, eye_L and the light image was
+bitwise the op chain's; its plain_ms is the op chain's walks a pass in
+the captured render, its bound the bytes walk_bytes counts (each lane's
+key, hit, ray and state read, its vertex, step, sample and next ray
+written: 227 B a lane a launch at d5) over 3.35 TB/s.  It replaces no
+Pallas kernel: "replaces" names the JAX package's walk step.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and before that one JSON line
@@ -337,7 +359,8 @@ GOLDEN_DAE = os.path.join(GOLDEN_DIR,
                           "dae_cbox_spheres_bdpt_48x36_d5_8spp_seed0.npz")
 DAE_LEVEL = 4                                  # icospheres of the 9a file
 KERNEL_CHECK = os.path.join(REPO, "artifacts", "GPU_KERNEL_CHECK.json")
-KERNELS = ("brute_hit", "clustered_hit", "mt_bench", "bvh_walk", "connect")
+KERNELS = ("brute_hit", "clustered_hit", "mt_bench", "bvh_walk", "connect",
+           "walk")
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 flop/s (no tensor
 # cores), dense TF32 tensor-core flop/s; the per-test operation counts of
 # the bounds
@@ -1124,6 +1147,7 @@ def phase8_pt(dev, gpu, mesh):
 # --- phase 9: the command-line renderer on .dae files ---------------------
 
 BDPT_PER_PASS = {"area": 11, "area+env": 18}   # K1/K2 launches of a d5 pass
+WALK_PER_PASS = 2 * DEPTH   # walk kernel launches of a d5 pass: eye, light
 PT_PER_PASS = 10
 UPSAMPLED_TRIS = 6 * 2 * 16 + 2 * 20 * 4 ** (DAE_LEVEL + 2)   # 164,032
 
@@ -2090,14 +2114,15 @@ def phase13_tools(dev, gpu):
             per = 2 * depth + 1
             fused = depth + 1 <= MAX_VERTICES     # the connections kernel
             want = {"brute_hit": per * spp, "clustered_hit": 0,
-                    "bvh_walk": 0, "connect": spp * fused}
+                    "bvh_walk": 0, "connect": spp * fused,
+                    "walk": 2 * depth * spp}
             check(r["tris"] == 12 and r["scene_file"] is None
                   and r["kernel_route"] == "brute" and r["spp"] == spp
                   and r["depth"] == depth and r["gpu"] == gpu,
                   f"phase13a {name}: {r}")
             check(r["launches"] == want and r["warmup_launches"] == {
                 **want, "brute_hit": per * chunk,
-                "connect": chunk * fused},
+                "connect": chunk * fused, "walk": 2 * depth * chunk},
                 f"phase13a {name}: launches {r['launches']}, warm-up "
                 f"{r['warmup_launches']}")
             check(r["rays"] > 0 and r["samples_per_s"] > 0,
@@ -2129,7 +2154,8 @@ def phase13_tools(dev, gpu):
                 device=dev)
             want = {"brute_hit": 0, "clustered_hit": 0, "bvh_walk": 0,
                     kernel: BDPT_PER_PASS["area"] * FLAGSHIP_SPP,
-                    "connect": FLAGSHIP_SPP}
+                    "connect": FLAGSHIP_SPP,
+                    "walk": WALK_PER_PASS * FLAGSHIP_SPP}
             check(row["kernel_route"] == route and row["launches"] == want,
                   f"phase13b {name}: route {row['kernel_route']}, "
                   f"launches {row['launches']}")
@@ -2209,7 +2235,7 @@ def phase13_tools(dev, gpu):
                       and r["launches"] == {
                           "brute_hit": 0, "clustered_hit":
                           BDPT_PER_PASS["area"] * 8, "bvh_walk": 0,
-                          "connect": 8}
+                          "connect": 8, "walk": WALK_PER_PASS * 8}
                       and r["gpu"] == gpu,
                       f"phase13d k={ups} {build}: {r}")
                 frames[build] = np.load(frame)
@@ -2535,8 +2561,8 @@ def phase15_train(dev, gpu, mesh, grad10, grads10, env10):
             turns.append({"mode": mode, "step_s": secs,
                           "rel_of_max_grad": rel})
         check(step.launches == dict(zip(("brute_hit", "clustered_hit",
-                                         "bvh_walk", "connect"),
-                                        (*want, 0))),
+                                         "bvh_walk", "connect", "walk"),
+                                        (*want, 0, 0))),
               f"phase15c {label}: graph launches {step.launches}")
         rec = {"turns": turns, "capture_s": step.capture_s,
                "nodes": step.nodes, "pool_bytes": step.pool_bytes,
@@ -2771,6 +2797,263 @@ def phase16_connect(dev, gpu):
     return {"line": line, "detail": detail}
 
 
+
+# --- phase 17: the walk-step kernel against the op chain --------------------
+
+P17_SPP = 4                  # passes of each timed render (one chunk)
+P17_SCENES = ("cbspheres", "meshbox_458k", "skylit_458k")  # benchmark/configs/
+P17_RTOL, P17_ATOL = 1e-5, 1e-6
+P17_SHOWN = 4                # differing lanes reported a tensor, with bits
+
+
+def bench_scene(label, dev):
+    """The benchmark's program scene of configuration `label`, with its sky
+    attached where the configuration has one (as benchmark/traffic/
+    env_frames.py attaches it)."""
+    from benchmark import scene as bscene
+    from bidirectional_pathtracing_tpu_torch.ops.envlight import build_envmap
+    arrays = bscene.arrays(bscene.load_config(label))
+    scene = bscene.program_scene(arrays, dev)
+    if "envmap" in arrays:
+        scene = scene._replace(envmap=build_envmap(arrays["envmap"],
+                                                   device=dev))
+    return scene
+
+
+def walk_pass(scene, cfg, key, route):
+    """One eager sample_pass over every pixel with its walks' steps on
+    `route` ("kernel" or "chain").  Returns (walks [(site, adjoint,
+    Subpath, (step_d, step_miss))] in the pass's order, eye_L, the light
+    image, the arguments of each ops/walk.py step launch, as
+    launch_args got them)."""
+    import torch
+    from bidirectional_pathtracing_tpu_torch.models import bdpt
+    from bidirectional_pathtracing_tpu_torch.ops import walk as wo
+    walks, steps = [], []
+    prepare, launch_args = bdpt._prepare_subpath, wo.launch_args
+
+    def record_walk(*a, **k):
+        path, st = prepare(*a, **k)
+        walks.append((a[8], k.get("adjoint", False), path, st))
+        return path, st
+
+    def record_step(*a):
+        steps.append(a)
+        return launch_args(*a)
+
+    pix = torch.arange(cfg.width * cfg.height, device=scene.device)
+    with patched(wo, route=lambda *a: route, launch_args=record_step), \
+            patched(bdpt, _prepare_subpath=record_walk), torch.no_grad():
+        eye, light = bdpt.sample_pass(scene, key, cfg.width, cfg.height, pix,
+                                      cfg, inv_ns_aa=1.0 / cfg.spp)
+    torch.cuda.synchronize()
+    return walks, eye, light, steps
+
+
+def lane_bits(x):
+    """A lane's values as hex words (floats) or numbers (ints, bools)."""
+    import torch
+    if x.dtype.is_floating_point:
+        return [f"{v & 0xFFFFFFFF:08x}"
+                for v in x.reshape(-1).view(torch.int32).tolist()]
+    return [int(v) for v in x.reshape(-1).tolist()]
+
+
+def walk_diff(got, ref):
+    """Every walk's Subpath tensors and steps, kernel against op chain:
+    ({"<site>.<tensor>": share of lanes bitwise equal}, up to P17_SHOWN
+    differing lanes a tensor with both sides' bits, whether every element
+    is within rtol P17_RTOL / atol P17_ATOL or both NaN)."""
+    import torch
+    shares, shown, close = {}, [], True
+    check([(w[0], w[1]) for w in got] == [(w[0], w[1]) for w in ref],
+          "phase17: the routes walked different walks")
+    for (site, _, path, st), (_, _, r_path, r_st) in zip(got, ref):
+        pairs = dict(zip(path._fields, zip(path, r_path)))
+        pairs.update(step_d=(st[0], r_st[0]), step_miss=(st[1], r_st[1]))
+        for name, (x, y) in pairs.items():
+            key = f"{site}.{name}"
+            if x.dtype.is_floating_point:
+                same = x.view(torch.int32) == y.view(torch.int32)
+                ok = ((x - y).abs() <= P17_ATOL + P17_RTOL * y.abs()) \
+                    | (x == y) | (x.isnan() & y.isnan())
+                close = close and bool(ok.all())
+            else:
+                same = x == y
+                close = close and bool(same.all())
+            same = same.reshape(x.shape[0], -1).all(-1)
+            shares[key] = float(same.float().mean())
+            for lane in torch.nonzero(~same).flatten()[:P17_SHOWN].tolist():
+                shown.append({"tensor": key, "lane": lane,
+                              "kernel": lane_bits(x[lane]),
+                              "chain": lane_bits(y[lane])})
+    return shares, shown, close
+
+
+def walk_bytes(lanes, step):
+    """Bytes one launch of the walk kernel moves: each lane's key (16 B),
+    hit (t, valid, n, mat: 21 B) and ray (o, d: 24 B) read; the vertex it
+    stands on and its sample (n, alpha, p, valid, pdf, f: 45 B) read, or
+    at step 0 the walk's start (v1's n, alpha, p and dir_pdf: 32 B); the
+    new vertex (pos, n, alpha, p, mat, valid: 45 B, three vertices at step
+    0), the step (d, miss: 13 B), the sample (16 B) and the next ray (o,
+    d, min_t, max_t: 32 B) written."""
+    read = 16 + 21 + 24 + (32 if step == 0 else 45)
+    written = 45 * (3 if step == 0 else 1) + 13 + 16 + 32
+    return lanes * (read + written)
+
+
+def phase17_walk(dev, gpu):
+    """Phase 17: on the benchmark's cbspheres, meshbox_458k and skylit_458k
+    scenes at 480x360 d5, one eager pass with the walks' steps through the
+    kernel (csrc/walk.cu) and one through the op chain, on the same key:
+    every walk's Subpath tensors and steps within rtol 1e-5 / atol 1e-6,
+    the share of bitwise-equal lanes of each printed with the bits of the
+    first lanes that differ, and the bitwise shares of eye_L and the light
+    image.  Each launch of the pass timed alone on its arguments
+    (device_ms, summed a pass) against its bound (walk_bytes over 3.35
+    TB/s).  Then the main path: a render of P17_SPP passes through the
+    captured pass with the kernel's launch count set to 0 before it (5
+    launches a walk a pass, replays included), and the same render with
+    the walks through the op chain; the walks' device time a pass from the
+    pass marks of each, and the graphs' nodes.  Returns {"line": the
+    kernels line's entry, "detail": {...}}."""
+    import torch
+    from bidirectional_pathtracing_tpu_torch.config import RenderConfig
+    from bidirectional_pathtracing_tpu_torch.core import rng
+    from bidirectional_pathtracing_tpu_torch.ops import walk as wo
+    from bidirectional_pathtracing_tpu_torch.utils import step_graph, tracing
+    from bidirectional_pathtracing_tpu_torch.utils.render import render
+    from bidirectional_pathtracing_tpu_torch.utils.timing import (
+        call_ms, device_ms)
+
+    t_phase = time.perf_counter()
+    cfg = RenderConfig(spp=P17_SPP, max_ray_depth=DEPTH, width=W, height=H,
+                       integrator="bdpt", seed=0, samples_per_chunk=P17_SPP)
+    detail = {}
+    for label in P17_SCENES:
+        scene = bench_scene(label, dev)
+        key = rng.pass_keys(rng.key(17), [0], dev)[0]
+        k_walks, k_eye, k_light, steps = walk_pass(scene, cfg, key, "kernel")
+        c_walks, c_eye, c_light, c_steps = walk_pass(scene, cfg, key,
+                                                     "chain")
+        n_walks = len(k_walks)
+        check(len(steps) == n_walks * DEPTH and not c_steps,
+              f"phase17 {label}: {len(steps)} / {len(c_steps)} kernel "
+              f"launches on the kernel / chain routes, want "
+              f"{n_walks * DEPTH} / 0")
+        shares, shown, close = walk_diff(k_walks, c_walks)
+        bitwise = {"eye_L": float((k_eye.view(torch.int32)
+                                   == c_eye.view(torch.int32))
+                                  .all(-1).float().mean()),
+                   "light_img": float((k_light.view(torch.int32)
+                                       == c_light.view(torch.int32))
+                                      .all(-1).float().mean())}
+        for lane in shown:
+            print(f"[phase17] {label}: {lane['tensor']} lane {lane['lane']}"
+                  f" kernel {lane['kernel']} chain {lane['chain']}")
+        check(close, f"phase17 {label}: a walk tensor beyond rtol {P17_RTOL}"
+              f" / atol {P17_ATOL} of the op chain's")
+        all_bits = min(shares.values()) == 1.0 and min(bitwise.values()) == 1.0
+        del c_walks, c_eye, c_light
+
+        # each launch alone on its arguments (it rewrites its own outputs)
+        k_ms, c_ms, n_bytes = 0.0, 0.0, 0
+        for a in steps:
+            ms, src = device_ms(lambda: wo.step(*a), "walk_kernel", 20)
+            k_ms += ms
+            c_ms += call_ms(lambda: wo.step(*a), 20)
+            n_bytes += walk_bytes(W * H, a[3])
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        del steps, k_walks
+
+        # the main path: render() through the captured pass
+        step_graph.clear()
+        render(scene, dataclasses.replace(cfg, spp=1, samples_per_chunk=1),
+               seed=1)                                        # warm-up
+        torch.cuda.synchronize()
+        wo.step.launches = 0
+        res = render(scene, cfg, seed=2)
+        launches = wo.step.launches
+        check(launches == P17_SPP * n_walks * DEPTH,
+              f"phase17 {label}: {launches} walk launches, want "
+              f"{P17_SPP * n_walks * DEPTH}")
+        check(np.isfinite(res.combined).all() and res.combined.mean() > 0,
+              f"phase17 {label}: non-finite or black frame")
+        k_phase = tracing.device_phases(last=P17_SPP, device=dev)
+        nodes = step_graph.cached()[-1].nodes
+        capture_s = step_graph.cached()[-1].capture_s
+        # the same render with the walks through the op chain
+        step_graph.clear()
+        with patched(wo, route=lambda *a: "chain"):
+            render(scene, dataclasses.replace(cfg, spp=1,
+                                              samples_per_chunk=1), seed=1)
+            render(scene, cfg, seed=2)
+        c_phase = tracing.device_phases(last=P17_SPP, device=dev)
+        chain_nodes = step_graph.cached()[-1].nodes
+        chain_capture_s = step_graph.cached()[-1].capture_s
+        step_graph.clear()
+        rec = {
+            "lanes": W * H, "walks": n_walks, "launches": launches,
+            "bitwise_share": shares, "bitwise_share_out": bitwise,
+            "all_bitwise": all_bits, "differing_lanes": shown,
+            "device_ms_per_pass": k_ms, "device_source": src,
+            "call_ms_per_pass": c_ms, "bytes_per_pass": n_bytes,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms,
+            "walk_phase_ms": float(k_phase[:, 0].mean()),
+            "chain_walk_phase_ms": float(c_phase[:, 0].mean()),
+            "connect_phase_ms": float(k_phase[:, 1].mean()),
+            "chain_connect_phase_ms": float(c_phase[:, 1].mean()),
+            "nodes": nodes, "chain_nodes": chain_nodes,
+            "capture_s": capture_s, "chain_capture_s": chain_capture_s,
+            "frame_mean": float(res.combined.mean())}
+        detail[label] = rec
+        print(f"[phase17] {label}: {n_walks} walks, kernel vs op chain within"
+              f" rtol {P17_RTOL} / atol {P17_ATOL}; every lane bitwise "
+              f"{all_bits} (lowest share {min(shares.values()):.6f}; eye_L "
+              f"{bitwise['eye_L']:.6f}, light image "
+              f"{bitwise['light_img']:.6f}); kernel device "
+              f"{k_ms:.4f} ms a pass ({src}), call {c_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}, "
+              f"{n_bytes / (W * H * n_walks * DEPTH):.0f} B a lane a launch, "
+              f"{100 * b_ms / k_ms:.2f} %); walks a pass "
+              f"{rec['walk_phase_ms']:.3f} ms through the kernel, "
+              f"{rec['chain_walk_phase_ms']:.3f} ms through the op chain; "
+              f"connections {rec['connect_phase_ms']:.3f} / "
+              f"{rec['chain_connect_phase_ms']:.3f} ms; graph nodes {nodes} "
+              f"/ {chain_nodes}, capture {capture_s:.2f} / "
+              f"{chain_capture_s:.2f} s; launches {launches} over {P17_SPP} "
+              f"passes ({gpu})")
+        del scene, res
+        torch.cuda.empty_cache()
+    detail["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase17] {detail['seconds']:.1f} s")
+    first = detail[P17_SCENES[0]]
+    line = {
+        "name": "walk",
+        "route": "cuda",
+        "source": "bidirectional_pathtracing_tpu_torch/csrc/walk.cu",
+        "replaces": "bidirectional_pathtracing_tpu/models/bdpt.py:74 "
+                    "(_prepare_subpath's step body, not a Pallas kernel)",
+        "launches": first["launches"],
+        "ms": first["device_ms_per_pass"],
+        "device_ms": first["device_ms_per_pass"],
+        "device_source": first["device_source"],
+        "call_ms": first["call_ms_per_pass"],
+        "gate": "tolerance",
+        "plain_ms": first["chain_walk_phase_ms"],
+        "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"],
+        "library_ms": None,
+        "all_bitwise": all(detail[k]["all_bitwise"] for k in P17_SCENES),
+    }
+    for label in P17_SCENES[1:]:
+        for k in ("launches", "device_ms_per_pass", "call_ms_per_pass",
+                  "bound_ms", "all_bitwise"):
+            line[f"{label}_{k}"] = detail[label][k]
+        line[f"{label}_plain_ms"] = detail[label]["chain_walk_phase_ms"]
+    return {"line": line, "detail": detail}
+
 def main() -> int:
     import torch
 
@@ -3002,6 +3285,7 @@ def main() -> int:
     train15 = phase15_train(dev, gpu, mesh, grad, grads10, env10)
     del mesh, grads10, env10
     connect16 = phase16_connect(dev, gpu)
+    walk17 = phase17_walk(dev, gpu)
 
     # Every kernel: ms is device_ms, the kernel's own time on the device
     # (utils/timing.py; device_source says whether from the profiler or a
@@ -3096,7 +3380,8 @@ def main() -> int:
         "flagship_launches": tool_launches["clustered_hit"]["flagship"],
         "ab_launches": tool_launches["clustered_hit"]["ab"],
     }] + k3["kernels"] + [walk_kernel_line(walk_times, walk_launches,
-                                           walk_err), connect16["line"]]}
+                                           walk_err), connect16["line"],
+                           walk17["line"]]}
     detail = {"gpu": gpu, "k1_times": times, "k2_times": k2_times,
               "checks": {"cornell": rep_box, "soup8192": rep_soup,
                          f"meshbox_L{MESH_LEVEL}": rep_mesh,
@@ -3118,7 +3403,7 @@ def main() -> int:
               "k3": k3["detail"], "env": env, "pt": pt, "cli": cli,
               "grad": grad, "mp": mp, "bvh": bvh12, "tools": tools13,
               "graph": graph14, "train": train15,
-              "connect": connect16["detail"]}
+              "connect": connect16["detail"], "walk": walk17["detail"]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     os.makedirs(os.path.dirname(KERNEL_CHECK), exist_ok=True)
@@ -3128,7 +3413,8 @@ def main() -> int:
                    "gates": {"phase10": grad, "phase11": mp,
                              "phase12": bvh12, "phase13": tools13,
                              "phase14": graph14, "phase15": train15,
-                             "phase16": connect16["detail"]}},
+                             "phase16": connect16["detail"],
+                             "phase17": walk17["detail"]}},
                   f, indent=1)
     total_s = time.perf_counter() - t_script
     detail["total_s"] = total_s

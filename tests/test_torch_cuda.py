@@ -927,7 +927,8 @@ def test_bench_row_on_card(cuda):
     """tools/bench.py's CBspheres row at 48x36 (d5, 32 spp in chunks of 8;
     the Cornell box where the reference checkout is absent): through K1,
     2d + 1 launches a pass over the warm-up chunk and over the timed
-    chunks, and one of the connections kernel a pass."""
+    chunks, one of the connections kernel and 2d of the walk-step kernel
+    a pass."""
     from bidirectional_pathtracing_tpu_torch.tools import bench
     name, path, depth, spp, chunk = bench.RUNS[0]
     row = bench.bench_scene(name, path, depth, spp, chunk, width=48,
@@ -935,7 +936,8 @@ def test_bench_row_on_card(cuda):
     per = 2 * depth + 1
     assert row["kernel_route"] == "brute" and row["device"] == "cuda:0"
     assert row["launches"] == {"brute_hit": per * spp, "clustered_hit": 0,
-                               "bvh_walk": 0, "connect": spp}
+                               "bvh_walk": 0, "connect": spp,
+                               "walk": 2 * depth * spp}
     assert row["warmup_launches"]["brute_hit"] == per * chunk
     assert row["spp"] == spp and row["rays"] > 0 and row["gpu"]
     assert bench.headline(row)["metric"] == \
@@ -973,8 +975,8 @@ def test_scaling_run_on_card_is_render_frame_sharded(cuda, tmp_path):
 def test_flagship_row_through_clustered_kernel_on_card(cuda, tmp_path):
     """tools/flagship_render.py's lucy row on the level-4 mesh box written
     as CBbunny.dae (163,852 triangles after its two upsamples), 48x36,
-    2 spp: through K2 and the connections kernel, its frame bitwise
-    render()'s."""
+    2 spp: through K2, the connections kernel and the walk-step kernel,
+    its frame bitwise render()'s."""
     from bidirectional_pathtracing_tpu_torch.scene.procedural import (
         write_cornell_box_dae)
     from bidirectional_pathtracing_tpu_torch.tools import flagship_render
@@ -986,7 +988,7 @@ def test_flagship_row_through_clustered_kernel_on_card(cuda, tmp_path):
         device=cuda)
     assert row["tris"] == 163_852 and row["kernel_route"] == "clustered"
     assert row["launches"] == {"brute_hit": 0, "clustered_hit": 2 * 11,
-                               "bvh_walk": 0, "connect": 2}
+                               "bvh_walk": 0, "connect": 2, "walk": 2 * 10}
     assert row["referee"] == "pt_mis_2"
     ref = render(scene, cfg)
     for k in ("eye", "light", "combined"):

@@ -208,10 +208,10 @@ def test_one_capture_serves_every_step(monkeypatch):
     step = hist["grad_step"]
     assert stub.calls == 1 and step.route == "graph"
     assert step.launches == {"brute_hit": 3, "clustered_hit": 0,
-                             "bvh_walk": 1, "connect": 0}
+                             "bvh_walk": 1, "connect": 0, "walk": 0}
     assert (step.capture_s, step.pool_bytes, step.nodes) == (0.5, 1234, 77)
     assert after == {"brute_hit": 9, "clustered_hit": 0, "bvh_walk": 3,
-                     "connect": 0}
+                     "connect": 0, "walk": 0}
     assert hist["loss"] == eager["loss"]
     assert hist["albedo_err"] == eager["albedo_err"]
     assert torch.equal(hist["params"][0], eager["params"][0])

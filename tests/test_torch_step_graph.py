@@ -319,7 +319,7 @@ def test_launch_accounting_counts_replays_only(fresh_cache):
     p = step_graph.graphed_pass(scene, cfg, W, H, pix, capture=stub)
     assert step_graph.launch_counts() == before     # warm-up, capture undone
     assert p.launches == {"brute_hit": 3, "clustered_hit": 0, "bvh_walk": 1,
-                          "connect": 0}
+                          "connect": 0, "walk": 0}
     assert (p.capture_s, p.pool_bytes, p.nodes) == (0.5, 1234, 77)
     keys = rng.pass_keys(rng.key(0), range(4), "cpu")
     zero = torch.zeros((W * H, 3))

@@ -156,7 +156,7 @@ def test_step_graph_counters_replay(clean):
     ran = step_graph.launches_since(launches)
     assert ran["brute_hit"] == 12 and ran["bvh_walk"] == 4   # the stub's
     assert p.launches == {"brute_hit": 3, "clustered_hit": 0, "bvh_walk": 1,
-                          "connect": 0}
+                          "connect": 0, "walk": 0}
 
 
 def test_eager_pass_marks_are_ordered_and_span_the_pass(clean):
